@@ -6,21 +6,20 @@ is a first-class obstacle source with three routes (round 4):
 
   1. `MPCPlanner.set_costmap(omap)` — single robot: host greedy blob fit
      (~1.2 ms/map) installs parametric obstacles; each cycle transforms
-     them into the robot frame and solves at full megakernel speed.
+     them into the robot frame and solves them as smooth parametric terms.
   2. `FleetPlanner.set_costmaps(omaps)` — fleet: the batched jitted
-     DEVICE fit (`fit_gaussians_to_maps`, 8,192 64x64 maps in 8.3 ms on
-     v5e) converts every robot's map in one program.
+     DEVICE fit (`fit_gaussians_to_maps`) converts every robot's map in
+     one program.
   3. `ObstacleMap(sampling="spline").with_spline_coeffs()` — stay on the
      grid directly with the C1 quadratic-B-spline reconstruction
-     evaluated from precomputed per-cell coefficient planes (round 5:
-     conv 0.998 at 2,692 solves/s @ B=4096 — faster than BOTH the 9-tap
-     stencil and bilinear; re-derive planes on grid updates via
-     `with_grid`). Plain "spline" keeps the stencil; "bilinear" is the
-     costmap_2d-exact C0 mode (conv ~0.94).
+     evaluated from precomputed per-cell coefficient planes (conv 0.998
+     at B=4096; re-derive planes on grid updates via `with_grid`). Plain
+     "spline" keeps the stencil; "bilinear" is the costmap_2d-exact C0
+     mode (conv ~0.94).
 
 Run (CPU works fine for this size):
 
-    python examples/costmap_pipeline.py
+    JAX_PLATFORMS=cpu python examples/costmap_pipeline.py
 """
 
 import os
@@ -29,8 +28,6 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")  # drop for the real TPU
 
 import jax.numpy as jnp
 import numpy as np

@@ -20,11 +20,6 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if os.environ.get("JAX_PLATFORMS", "").lower() == "cpu":
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,7 +9,7 @@ global replanning.
 
 Run (CPU works fine for this size):
 
-    python examples/obstacle_navigation.py
+    JAX_PLATFORMS=cpu python examples/obstacle_navigation.py
 """
 
 import os
@@ -18,8 +18,6 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")  # drop for the real TPU
 
 import jax.numpy as jnp
 import numpy as np

@@ -1,4 +1,4 @@
-"""mpc_ros_tpu — TPU-native NMPC trajectory-optimization framework.
+"""mpc_ros_tpu — batched NMPC trajectory-optimization framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the ROS C++
 reference `OkDoky/mpc_ros` (differential-drive NMPC path tracking): batched

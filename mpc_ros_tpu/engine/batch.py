@@ -1,10 +1,10 @@
-"""Batched scenario solving — the single-chip throughput engine.
+"""Batched scenario solving — the per-scenario (vmap) batch engine.
 
 The reference solves exactly one NLP per control cycle on a CPU
-(/root/reference/mpc_ros/src/mpc_planner.cpp:265). The TPU design's first
+(mpc_ros/src/mpc_planner.cpp:265 in the reference). This design's first
 scale axis (SURVEY.md §2.4a) is `vmap` over thousands of independent scenario
 NLPs — initial pose x reference shape x weight draws — so every Riccati
-step becomes a large batched (B, 8, 8) einsum that XLA maps onto the MXU.
+step becomes one large batched (B, 8, 8) contraction.
 
 Two entry points:
 * `batch_solve`      — shared MPCParams across the batch (control serving).
@@ -19,8 +19,8 @@ from typing import Any, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from .. import pytree
 from ..config import MPCParams, SolverConfig
 from ..solver import ilqr
 from ..solver.types import SolveResult
@@ -28,7 +28,7 @@ from ..solver.types import SolveResult
 Array = Any
 
 
-@struct.dataclass
+@pytree.dataclass
 class Scenario:
     """One NMPC problem instance (all leaves batchable)."""
 

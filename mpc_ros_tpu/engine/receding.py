@@ -21,8 +21,8 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from .. import pytree
 from ..config import MPCParams, SolverConfig
 from ..models.base import get_model
 from ..solver.batch_lane import batch_solve_lane
@@ -30,7 +30,7 @@ from ..solver.batch_lane import batch_solve_lane
 Array = Any
 
 
-@struct.dataclass
+@pytree.dataclass
 class RecedingTrace:
     zs: Array        # (n_cycles, B, 6) plant states per cycle
     us: Array        # (n_cycles, B, 2) applied controls

@@ -1,17 +1,13 @@
-"""Shared Pallas tile helpers for the NMPC kernels.
+"""Per-lane helpers shared by the whole-solve kernel and the XLA lane path.
 
-Per-lane small-matrix arithmetic on (r, c, V)-shaped values (V = the
-per-lane tile shape: (128,) historically, (sub, 128) in the wide-tile
-megakernel), Horner polynomial evaluation of the reference path, and the
-exact 9-combo 2-dim box QP. Consumed by kernels/backward_fused_pallas.py,
-kernels/forward_pallas.py and kernels/solve_pallas.py; the standalone
-(non-fused) backward kernel that originally lived here was superseded by
-the fused designs and removed.
+Every per-scenario value is one vector over a block of lanes (the batch
+axis); small state/control matrices are Python lists of such vectors, so
+an 8x8-per-lane product is a handful of elementwise FMAs per lane. Each
+lane owns a different matrix, so there is nothing for a matrix unit here.
 
-Layout rationale: batch on the 128 vector lanes (minor axis), small
-state/control dims unrolled as tile-row arithmetic — every 8x8-per-lane
-matmul is 64 broadcast-FMAs on lane tiles (pure VPU; there is nothing for
-the MXU here since each lane owns a different matrix).
+Holds the packed-parameter layout (`pack_params`, `P_*` rows), Horner
+evaluation of the reference polynomial and its derivatives, and the exact
+9-combo 2-dim box QP.
 """
 
 from __future__ import annotations
@@ -20,17 +16,32 @@ import itertools
 
 import jax.numpy as jnp
 
-_N = 8
-_M = 2
-_LANES = 128
 _COMBOS = list(itertools.product(range(3), repeat=2))
+
+# packed-parameter row indices
+P_WCTE, P_WETH, P_WVEL, P_WANG, P_WACC, P_WDANG, P_WDACC = range(7)
+P_RVEL, P_RCTE, P_RETH, P_DT, P_LF = range(7, 12)
+N_PAR = 12
+
+
+def pack_params(p, B: int, dtype) -> jnp.ndarray:
+    """Stack the MPCParams leaves the kernel needs into (N_PAR, B).
+
+    Row P_LF (the bicycle wheelbase, traced/per-lane sweepable) is only
+    read by the kernel's bicycle specialization."""
+    rows = [p.w_cte, p.w_etheta, p.w_vel, p.w_angvel, p.w_accel,
+            p.w_angvel_d, p.w_accel_d, p.ref_vel, p.ref_cte, p.ref_etheta,
+            p.dt, p.lf]
+    return jnp.stack([
+        jnp.broadcast_to(jnp.asarray(r, dtype), (B,)) for r in rows
+    ])
 
 
 def _polyval_tile(c, x):
-    """Horner evaluation of f(x) = sum_i c[i] x^i on per-lane tiles.
-    c: (P, V...) coefficient rows, x: (V...) — any polynomial order
-    (the reference's cubic is just P=4)."""
-    P = c.shape[0]
+    """Horner evaluation of f(x) = sum_i c[i] x^i per lane.
+    c: (P, V...) coefficient rows (an array or a list of rows), x: (V...)
+    — any polynomial order (the reference's cubic is just P=4)."""
+    P = len(c)
     acc = c[P - 1]
     for i in range(P - 2, -1, -1):
         acc = c[i] + x * acc
@@ -39,7 +50,7 @@ def _polyval_tile(c, x):
 
 def _polyder_tile(c, x):
     """f'(x) for the same representation (zero for constant polys)."""
-    P = c.shape[0]
+    P = len(c)
     if P == 1:
         return jnp.zeros_like(x)
     acc = (P - 1.0) * c[P - 1]
@@ -51,7 +62,7 @@ def _polyder_tile(c, x):
 def _polyder2_tile(c, x):
     """f''(x) — the cte row's exact state curvature for the DDP
     second-order backward pass (SolverConfig.ddp)."""
-    P = c.shape[0]
+    P = len(c)
     if P <= 2:
         return jnp.zeros_like(x)
     acc = float((P - 1) * (P - 2)) * c[P - 1]
@@ -60,46 +71,21 @@ def _polyder2_tile(c, x):
     return jnp.broadcast_to(acc, x.shape)
 
 
-# ---- per-lane small-matrix helpers: X, Y are (r, c, 128) jnp values ------
+def _boxqp_tile(Quu, Qu, lbd, ubd):
+    """Exact 2-dim box QP per lane on lists of per-lane vectors.
 
-def _mtm(X, Y, r, k, c):
-    """Z[i,j] = sum_m X[m,i] Y[m,j]; X (k,r,128), Y (k,c,128) -> (r,c,128)."""
-    rows = []
-    for i in range(r):
-        acc = X[0, i][None, :] * Y[0]
-        for m in range(1, k):
-            acc = acc + X[m, i][None, :] * Y[m]
-        rows.append(acc)
-    return jnp.stack(rows)
-
-
-def _mtv(X, v, r, k):
-    """y[i] = sum_m X[m,i] v[m]; X (k,r,128), v (k,128) -> (r,128)."""
-    return jnp.stack(
-        [sum(X[m, i] * v[m] for m in range(k)) for i in range(r)])
-
-
-def _mv(X, v, r, k):
-    """y[i] = sum_m X[i,m] v[m]; X (r,k,128), v (k,128) -> (r,128)."""
-    return jnp.stack(
-        [sum(X[i, m] * v[m] for m in range(k)) for i in range(r)])
-
-
-def _boxqp_tile(Quu, Qu, lbd, ubd, Qus, dtype):
-    """Exact 2-dim box QP per lane. Quu (2,2,V), Qu (2,V), lbd/ubd (2,V),
-    Qus (2,8,V) -> k (2,V), K (2,8,V), where V is any per-lane tile shape
-    ((128,) for the two-kernel design, (sub, 128) for the megakernel).
+    Quu ((a, b), (c, d)), Qu (q0, q1), lbd/ubd (lo0, lo1)/(hi0, hi1) ->
+    the step (k0, k1) and the selected inverse entries (j00, j01, j10,
+    j11): the caller assembles the feedback rows as
+    K[0] = -(j00 Qus[0] + j01 Qus[1]), K[1] = -(j10 Qus[0] + j11 Qus[1]).
 
     Active-set enumeration over the 9 clamp combos, specialized per combo:
     a clamped dimension collapses the masked 2x2 solve to a 1-D (or 0-D)
     closed form, so the whole enumeration needs 3 reciprocals (1/a, 1/d,
-    1/det) instead of 4 divisions in each combo, and the feedback matrix
-    K = Minv @ (-(f*Qus)) is assembled ONCE from the selected inverse
-    entries — masked-accumulating full K rows over all 9 combos was ~60%
-    of the QP's vector ops (divisions + that accumulation dominated the
-    backward-pass kernel time)."""
-    a, b = Quu[0, 0], Quu[0, 1]
-    c, d = Quu[1, 0], Quu[1, 1]
+    1/det), and the feedback matrix is assembled once from the selected
+    inverse entries instead of masked-accumulating K rows over all 9
+    combos."""
+    (a, b), (c, d) = Quu
     det = a * d - b * c
     rdet = 1.0 / det
     ra = 1.0 / a
@@ -157,7 +143,7 @@ def _boxqp_tile(Quu, Qu, lbd, ubd, Qus, dtype):
     j00, j01, j10, j11 = zeros, zeros, zeros, zeros
     for idx, (c0, c1) in enumerate(_COMBOS):
         is_best = jnp.logical_and(cand_viol[idx] <= best_viol, picked < 0.5)
-        sel = is_best.astype(dtype)
+        sel = is_best.astype(zeros.dtype)
         picked = picked + sel
         d0, d1 = cand_d[idx]
         k0 = k0 + sel * d0
@@ -171,9 +157,4 @@ def _boxqp_tile(Quu, Qu, lbd, ubd, Qus, dtype):
             j00 = j00 + sel * ra
         elif c1 == 0:                      # only u1 free: row1 = -Qus[1]/d
             j11 = j11 + sel * rd
-    k = jnp.stack([k0, k1])
-    K = jnp.stack([
-        -(j00[None] * Qus[0] + j01[None] * Qus[1]),
-        -(j10[None] * Qus[0] + j11[None] * Qus[1]),
-    ])
-    return k, K
+    return (k0, k1), (j00, j01, j10, j11)

@@ -1,15 +1,14 @@
 """Speed-of-light accounting for the solver's hot stages.
 
-BASELINE.md config #3 requires "kernel speed-of-light accounting for rollout
-+ Riccati": analytic FLOP and HBM-byte counts per stage of the lane-major
-batched solve (solver/batch_lane.py), a roofline bound from device peaks,
-and efficiency = bound / measured.
+Analytic FLOP and device-memory byte counts per stage of the lane-major
+batched solve (solver/batch_lane.py) and of the whole-solve kernel
+(kernels/solve_pallas.py), a roofline bound from the device's published
+peaks, and efficiency = bound / measured.
 
 Counts are per SQP iteration for a batch B, horizon T, state n=8, control
-m=2, n_alpha line-search candidates, f32. The workload is strongly
-MEMORY-bound (arithmetic intensity ~2-3 flop/byte vs the v5e knee at ~60),
-so the roofline is effectively the HBM bound — which is what the lane-major
-layout optimizes.
+m=2, n_alpha line-search candidates, f32. The XLA lane path is strongly
+MEMORY-bound (arithmetic intensity ~2-3 flop/byte against the H100's f32
+knee of ~20), so its roofline is the memory bound.
 """
 
 from __future__ import annotations
@@ -23,17 +22,32 @@ _F32 = 4   # bytes
 
 @dataclasses.dataclass(frozen=True)
 class DeviceSpec:
-    """Peak numbers for the roofline. Defaults: TPU v5e (one chip).
+    """Published peaks of one device for the roofline: float32 FLOP/s
+    outside any matrix unit (every per-lane product here is elementwise)
+    and device-memory bytes/s."""
 
-    peak_flops_f32 is approximated as 1/4 of the published bf16 MXU peak
-    (197 TFLOP/s) — f32 multiplies cost ~4 bf16 passes; VPU-bound stages
-    are lower still, making the efficiency numbers conservative on the
-    compute axis (the binding constraint here is HBM anyway).
-    """
+    name: str
+    peak_flops_f32: float
+    hbm_bytes_per_s: float
 
-    name: str = "TPU v5e"
-    peak_flops_f32: float = 197e12 / 4
-    hbm_bytes_per_s: float = 819e9
+
+# keyed by jax.Device.device_kind. Source: NVIDIA H100 Tensor Core GPU
+# data sheet, SXM5 part — 67 TFLOP/s FP32 (non-tensor), 3.35 TB/s HBM3.
+# Those peaks assume the card's full 700 W power limit.
+DEVICE_SPECS = {
+    "NVIDIA H100 80GB HBM3": DeviceSpec("NVIDIA H100 SXM", 67e12, 3.35e12),
+}
+
+
+def device_spec(kind: str) -> DeviceSpec:
+    """The peaks for a `device_kind`; an unknown device is an error (a
+    roofline against some other card's peaks would be meaningless)."""
+    try:
+        return DEVICE_SPECS[kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device kind {kind!r}; add it to "
+            f"kernels/roofline.DEVICE_SPECS with its source") from None
 
 
 @dataclasses.dataclass
@@ -93,9 +107,8 @@ def account_rollout(B: int, T: int) -> StageAccount:
     return StageAccount("rollout", flops, bytes_)
 
 
-def solve_accounting(B: int, T: int, n_alpha: int = 8,
-                     n_iters: float = 5.0,
-                     dev: DeviceSpec = DeviceSpec()) -> dict:
+def solve_accounting(B: int, T: int, dev: DeviceSpec, n_alpha: int = 8,
+                     n_iters: float = 5.0) -> dict:
     """Full-solve accounting: per-iteration stages x n_iters + rollout."""
     stages = [account_linearize(B, T), account_backward(B, T),
               account_forward(B, T, n_alpha)]
@@ -127,52 +140,43 @@ def solve_accounting(B: int, T: int, n_alpha: int = 8,
     }
 
 
-def megakernel_accounting(B: int, T: int, n_alpha: int = 8,
-                          n_iters: float = 5.0, ddp: bool = False,
-                          dev: DeviceSpec = DeviceSpec()) -> dict:
-    """Speed-of-light accounting for the whole-solve megakernel.
+def megakernel_accounting(B: int, T: int, dev: DeviceSpec, n_alpha: int = 8,
+                          n_iters: float = 5.0, ddp: bool = False) -> dict:
+    """Speed-of-light accounting for the whole-solve kernel.
 
-    The megakernel (kernels/solve_pallas.py) holds the trajectory, gains
-    and loop state in VMEM for the entire solve: HBM traffic collapses to
-    problem inputs + final outputs, and the binding constraint flips from
-    HBM bandwidth (the XLA lane paths stream ~stage-quadratic arrays every
-    iteration) to VPU compute. FLOPs are unchanged — every iteration still
-    linearizes, scans and line-searches — so the compute side reuses the
-    per-iteration stage counts (linearization is inlined into the backward
-    scan; the winner re-roll adds one more alpha-like rollout).
-
-    `vpu_flops_f32` approximates the v5e vector unit: (8, 128) lanes x
-    4 ALUs x 2 flops (FMA) x ~0.94 GHz ~= 7.7e12. The megakernel is pure
-    VPU (no MXU use by design), so that is the relevant compute peak.
-    """
-    vpu_flops_f32 = 7.7e12
+    FLOPs reuse the per-iteration stage counts (linearization is inlined
+    into the backward scan; the winner re-roll adds one more alpha-like
+    rollout). Memory traffic is the kernel's own per-lane streaming: each
+    backward stage reads the knot (8 state rows, 2 controls, 4 cached trig
+    values) and writes the gains (2 + 14); the line search reads the knot
+    and gains (26 values) for all candidates at once; the winner re-roll
+    reads 30 and writes 14. No (8, 8, B) stage array ever reaches device
+    memory."""
     per_iter = (account_linearize(B, T).flops
                 + account_backward(B, T).flops
                 + account_forward(B, T, n_alpha + 1).flops)
     if ddp:
         # gated second-order terms (SolverConfig.ddp): per backward stage,
         # the f''(x) Horner (~2P-3), the five dmap entry products (~22
-        # FMAs+mults incl. the gate scale) and their Qss additions (~7) —
-        # real executed work the GN model would otherwise omit, making
-        # per-executed-iteration efficiency read low under ddp
+        # FMAs+mults incl. the gate scale) and their Qss additions (~7)
         per_iter += 35.0 * B * T
     flops = per_iter * n_iters + account_rollout(B, T).flops
+    per_stage_iter = (14 + 16) + 26 + (30 + 14)
     in_bytes = B * (6 + 4 + 12 + 2 + 2 + 2 * T) * _F32
-    # 6 per-lane scalar outputs: cost, conv, iters, gnorm, mu, done
-    out_bytes = B * (_N * (T + 1) + _M * T + 6) * _F32
-    bytes_ = float(in_bytes + out_bytes)
-    t_compute = flops / vpu_flops_f32
+    roll_bytes = B * T * (2 + 2 + 4 + _N) * _F32
+    bytes_ = float(in_bytes + roll_bytes
+                   + B * T * per_stage_iter * _F32 * n_iters)
+    t_compute = flops / dev.peak_flops_f32
     t_hbm = bytes_ / dev.hbm_bytes_per_s
     return {
         "device": dev.name,
-        "kernel": "megakernel",
+        "kernel": "whole-solve",
         "B": B,
         "T": T,
         "n_iters": n_iters,
         "solve_gflops": flops / 1e9,
         "solve_mbytes": bytes_ / 1e6,
         "intensity_flop_per_byte": round(flops / bytes_, 1),
-        "vpu_peak_tflops_f32": vpu_flops_f32 / 1e12,
         "solve_roofline_ms": max(t_compute, t_hbm) * 1e3,
         "bound": "compute" if t_compute > t_hbm else "memory",
     }

@@ -1,31 +1,27 @@
-"""Pallas TPU megakernel: the ENTIRE batched SQP solve in one kernel.
+"""Whole-solve kernel: the entire batched SQP solve in one GPU program.
 
-One program per (sub x 128)-scenario batch tile runs the complete
-control-limited SQP loop on-chip: initial rollout, per-iteration
-(inline-linearized Riccati backward scan -> per-stage box QPs ->
-multi-alpha line search -> masked accept) and per-lane convergence
-bookkeeping — with the trajectory held in double-buffered VMEM scratch for
-the whole solve. HBM traffic per solve is inputs + final outputs only.
+One Pallas program (compiled through Triton) per power-of-two block of
+scenarios runs the complete control-limited SQP loop: initial rollout,
+per-iteration (inline-linearized Riccati backward scan -> per-stage box
+QPs -> multi-alpha line search -> masked accept) and per-lane convergence
+bookkeeping. Every per-scenario value is a (BLOCK,) vector — about one
+scenario per thread — and the small state/control matrices are Python
+lists of such vectors, so each 8x8 product is a few dozen FMAs per lane
+with structural zeros dropped at trace time.
 
-Every per-scenario value is a (sub, 128) tile; at the default sub=8 that
-is exactly one native f32 vreg (8 sublanes x 128 lanes), so each vector
-instruction advances 1024 scenarios — the (128,)-vector layout this
-replaced occupied 1 of 8 sublanes per vreg and left ~8x VPU throughput on
-the table.
+Why a kernel: XLA cannot fuse a while loop over three scans of T steps
+into one program. The plain path (`backward="xla"`) pays every scan step
+as separate launches with device-memory round trips of (8, 8, B) stage
+arrays, writes all line-search candidates every iteration, and runs the
+whole batch to its slowest lane. Here each block exits its while loop
+when ITS lanes are done, and the per-lane trajectory, gains and trig
+cache stream through buffers the program owns (extra outputs: the Triton
+route has no scratch memory), reading and writing only each lane's own
+slice — one coalesced (BLOCK,) load or store per row.
 
-Beyond removing all inter-kernel traffic, the other structural win is
-PER-TILE adaptive iteration: each batch tile's while-loop exits when ITS
-lanes are done, instead of the whole batch paying the globally slowest
-lane. Measured at B=131072/N=30 the win is small (mean tile-max 11.77 of
-cap 12 — the slow tail is sprinkled into nearly every 1024-lane tile;
-see BENCH_NOTES "Roofline closure"), but it is what makes the kernel
-robust across batch compositions: homogeneous/easy ensembles exit early
-per tile with no host round-trip.
-
-The per-stage math is the same as kernels/backward_fused_pallas.py and
-kernels/forward_pallas.py (structured-sparsity Jacobian products, exact
-9-combo box QP, FG_eval cost) — equality with the XLA lane solver is
-asserted in tests.
+The per-stage math is the XLA lane solver's (solver/batch_lane.py):
+structured-sparsity Jacobian products, exact 9-combo box QP, FG_eval
+cost — agreement is asserted in tests (interpret mode on the CPU).
 """
 
 from __future__ import annotations
@@ -37,60 +33,106 @@ import math
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
-from .backward_fused_pallas import (N_PAR, P_DT, P_LF, P_RCTE, P_RETH,
-                                    P_RVEL, P_WACC, P_WANG, P_WCTE,
-                                    P_WDACC, P_WDANG, P_WETH, P_WVEL)
-from .backward_pallas import (_boxqp_tile, _mtm, _mtv, _mv,
-                              _polyder_tile, _polyder2_tile, _polyval_tile)
+from .backward_pallas import (N_PAR, P_DT, P_LF, P_RCTE, P_RETH, P_RVEL,
+                              P_WACC, P_WANG, P_WCTE, P_WDACC, P_WDANG,
+                              P_WETH, P_WVEL, _boxqp_tile, _polyder2_tile,
+                              _polyder_tile, _polyval_tile)
 
 _N = 8
-_M = 2
-_LANES = 128
+# rows/cols of A (and of the A' Vss A product) that are not structurally
+# zero: nothing depends on cte_t (column 4) and rows 6-7 (previous
+# control) are pure control copies
+_ALIVE = (0, 1, 2, 3, 5)
+# Vss entries carried through the backward scan: row/col 4 is invariantly
+# diag(wc2) (A column 4 and K column 4 are zero), so it is not carried
+_VLIVE = (0, 1, 2, 3, 5, 6, 7)
+# stored feedback-gain columns (K column 4 is structurally zero)
+_KCOLS = _VLIVE
+_NK = len(_KCOLS)
+# rows of the per-lane stats output
+STAT_COST, STAT_CONV, STAT_ITERS, STAT_GNORM, STAT_MU, STAT_DONE = range(6)
+
+# lanes per program (one lane per thread: num_warps = BLOCK / 32); 64 was
+# the fastest of 64/128/256 at N=30, B=524,288 on an H100 (PERF.md)
+BLOCK = 64
+
+
+def lane_block(B: int, block: int = BLOCK) -> int:
+    """Power-of-two lanes per program for a batch of B: `block`, or the
+    smallest power of two >= B (at least 16) for small batches."""
+    return min(block, max(16, 1 << (max(B, 1) - 1).bit_length()))
+
+
+def padded_batch(B: int, block: int = BLOCK) -> int:
+    """The batch the kernel runs: B rounded up to a whole block."""
+    blk = lane_block(B, block)
+    return -(-B // blk) * blk
+
+
+def resolve_schedule(cfg) -> str:
+    """The iteration schedule a config runs: "auto" is "compact" above
+    n_steps 36 (long horizons have a genuinely slow tail of lanes,
+    censused in tools/census_horizon.py; short horizons keep the single
+    pass — the DDP endgame collapsed their tail)."""
+    if cfg.schedule == "auto":
+        return "compact" if cfg.n_steps > 36 else "single"
+    return cfg.schedule
+
+
+def straggler_lanes(B: int, cfg) -> int:
+    """Lanes the compact schedule's straggler pass runs for a batch of B
+    (block-granular, at least one block); B means one pass only."""
+    blk = lane_block(B)
+    n_tail = int(-(-B * cfg.compact_tail // blk)) * blk
+    return max(blk, min(n_tail, B))
 
 
 def _kernel(T: int, n_alpha: int, max_iters: int, sign: float,
             tol_grad: float, tol_cost_eff: float, mu_min: float,
-            mu_max: float, mu_factor: float, dtype, n_blobs: int,
-            sub: int, n_done_needed: int, unroll_bwd: bool,
-            has_resume: bool, has_setp: bool, fast_trig: bool,
-            model: str, ddp: bool, ddp_gate: float, adaptive: bool,
-            *refs):
-    # Per-lane values are (sub, 128) tiles. With sub=8 each value fills a
-    # native f32 vreg (8 sublanes x 128 lanes): one vector op processes
-    # 1024 scenarios. sub=1 wastes 7/8 of the VPU rows — it exists only as
-    # the fallback for batches not divisible by 1024.
+            mu_max: float, mu_factor: float, n_coef: int, n_blobs: int,
+            block: int, n_done_needed: int, has_resume: bool,
+            has_setp: bool, fast_trig: bool, model: str, ddp: bool,
+            ddp_gate: float, adaptive: bool, *refs):
+    f32 = jnp.float32
     (z0_ref, c_ref, par_ref, lb_ref, ub_ref, u0_ref) = refs[:6]
     i = 6
     if has_setp:
-        setp_ref = refs[i]          # (T+1, 3, sub, 128) per-knot setpoints
+        setp_ref = refs[i]          # (T+1, 3, B) per-knot setpoints
         i += 1
     if has_resume:
-        resume_ref = refs[i]
+        resume_ref = refs[i]        # (4, B): done, conv, mu, gnorm
         i += 1
     if n_blobs:
         bx_ref, by_ref, bg_ref, bw_ref = refs[i:i + 4]
         i += 4
-    (ss_out, us_out, cost_out, conv_out, iters_out, gnorm_out,
-     mu_out, done_out) = refs[i:i + 8]
-    traj_s, traj_u, traj_g, ks_ref, Ks_ref, s_scr = refs[i + 8:]
-    par = par_ref[...]
-    lb = lb_ref[...]
-    ub = ub_ref[...]
-    cf = c_ref[...]                 # (P, sub, 128): any poly order
+    # trajectory (ss, us) doubles as the output; g/k/K are working buffers
+    ss_ref, us_ref, stat_ref, g_ref, k_ref, K_ref = refs[i:i + 6]
+
+    lanes = pl.ds(pl.program_id(0) * block, block)
+
+    def ld(ref, *idx):
+        return ref[idx + (lanes,)]
+
+    def st(ref, val, *idx):
+        ref[idx + (lanes,)] = val
+
+    par = [ld(par_ref, r) for r in range(N_PAR)]
+    cf = [ld(c_ref, r) for r in range(n_coef)]
+    lb = [ld(lb_ref, 0), ld(lb_ref, 1)]
+    ub = [ld(ub_ref, 0), ld(ub_ref, 1)]
     dt = par[P_DT]
-    vshape = (sub, _LANES)
-    zeros = jnp.zeros(vshape, dtype)
+    zeros = jnp.zeros((block,), f32)
     alphas = [0.5 ** j for j in range(n_alpha)]
     if n_blobs:
-        bx = bx_ref[...]
-        by = by_ref[...]
-        bg = bg_ref[...]
-        bw = bw_ref[...]
+        bx = [ld(bx_ref, k) for k in range(n_blobs)]
+        by = [ld(by_ref, k) for k in range(n_blobs)]
+        bg = [ld(bg_ref, k) for k in range(n_blobs)]
+        bw = [ld(bw_ref, k) for k in range(n_blobs)]
 
     def obs_val(x, y):
-        """Parametric obstacle penalty sum_k w exp(-|d|^2 g) — pure VPU."""
+        """Parametric obstacle penalty sum_k w exp(-|d|^2 g)."""
         tot = zeros
         for k in range(n_blobs):
             dx = x - bx[k]
@@ -102,8 +144,7 @@ def _kernel(T: int, n_alpha: int, max_iters: int, sign: float,
         """Gradient + curvature (see blob_terms_bl). `gate` (the per-lane
         GN->DDP mask): when given, the blob Hessian's concave -2 g v I
         part is added back scaled by it — exact curvature near
-        convergence, convex GN model before the gate (the ridge-sliding
-        obstacle tail collapses ~60 -> ~22 iterations; basin stability
+        convergence, convex GN model before the gate (basin stability
         requires the gating, measured)."""
         gx = gy = hxx = hxy = hyy = zeros
         for k in range(n_blobs):
@@ -132,10 +173,7 @@ def _kernel(T: int, n_alpha: int, max_iters: int, sign: float,
     # one-sided weight-scale equivariance (SolverConfig.scale_adaptive,
     # models/costs.weight_scale): mu floor/ceiling scale per lane with
     # s = max(1, sum(w)/470); the pg MEASUREMENT normalizes by 1/s so the
-    # tol_grad / ddp_gate comparisons stay in c=1 units (scaling the
-    # thresholds instead would re-enter pg's control-unit clipped plateau
-    # and mis-engage the gate). Pure VPU math on weights already resident
-    # in the params tile — up-scaled lanes solve with exact c=1 iterates.
+    # tol_grad / ddp_gate comparisons stay in c=1 units
     if adaptive:
         wscl = jnp.maximum(
             (par[P_WCTE] + par[P_WETH] + par[P_WVEL] + par[P_WANG]
@@ -147,17 +185,17 @@ def _kernel(T: int, n_alpha: int, max_iters: int, sign: float,
     else:
         wscl = 1.0
         inv_wscl = 1.0
-        mu_lo = jnp.full(vshape, mu_min, dtype)
-        mu_hi = jnp.full(vshape, mu_max, dtype)
+        mu_lo = jnp.full((block,), mu_min, f32)
+        mu_hi = jnp.full((block,), mu_max, f32)
 
     # per-knot (ref_cte, ref_etheta, ref_vel) setpoints: a time-indexed
-    # VMEM profile in trajectory-tracking mode (solver/ilqr.py `refs`),
-    # the per-lane scalar params otherwise (FG_eval keeps them constant
-    # over the horizon, /root/reference/mpc_ros/src/mpc_planner.cpp:122-130)
+    # profile in trajectory-tracking mode (solver/ilqr.py `refs`), the
+    # per-lane scalar params otherwise (FG_eval keeps them constant over
+    # the horizon)
     if has_setp:
         def ref3(t):
-            r = setp_ref[t]
-            return r[0], r[1], r[2]
+            return (ld(setp_ref, t, 0), ld(setp_ref, t, 1),
+                    ld(setp_ref, t, 2))
     else:
         def ref3(t):
             return par[P_RCTE], par[P_RETH], par[P_RVEL]
@@ -167,8 +205,7 @@ def _kernel(T: int, n_alpha: int, max_iters: int, sign: float,
     # bicycle:    by (v / lf) * u0 * dt (u0 = delta; models/bicycle.py) —
     # the heading increment gains a state (v) dependence, which is the
     # ONLY structural difference: A[2,3] = A[5,3] = dth/dv and B rows 2/5
-    # scale by v/lf instead of 1. Everything else (cost, cte row,
-    # structural zeros at column 4) is family-invariant.
+    # scale by v/lf instead of 1.
     if model == "bicycle":
         invlf = 1.0 / par[P_LF]
 
@@ -178,23 +215,21 @@ def _kernel(T: int, n_alpha: int, max_iters: int, sign: float,
         def dth_of(v, u0):
             return u0 * dt
 
-    # ---------------- shared per-stage math (values in, values out) ------
+    # ---------------- shared per-stage math (lists of lane vectors) ------
 
     def dyn_step(s_a, u0, u1, tg):
-        x, y, th, v, cte, eth = (s_a[i] for i in range(6))
+        x, y, th, v, cte, eth = s_a[:6]
         ct_, st_, se_ = tg
         f0 = _polyval_tile(cf, x)
         dth = dth_of(v, u0)
-        return jnp.stack([
-            x + v * ct_ * dt,
-            y + v * st_ * dt,
-            th + dth,
-            v + u1 * dt,
-            (f0 - y) + sign * v * se_ * dt,
-            eth + dth,
-            u0,
-            u1,
-        ])
+        return [x + v * ct_ * dt,
+                y + v * st_ * dt,
+                th + dth,
+                v + u1 * dt,
+                (f0 - y) + sign * v * se_ * dt,
+                eth + dth,
+                u0,
+                u1]
 
     def stage_cost(s_rows, u0, u1, rate, t):
         du0 = u0 - s_rows[6]
@@ -218,41 +253,70 @@ def _kernel(T: int, n_alpha: int, max_iters: int, sign: float,
             c = c + obs_val(s_rows[0], s_rows[1])
         return c
 
+    def rate_of(t):
+        """Rate-cost switch: 0 at the first stage (no previous control)."""
+        return jnp.minimum(t, 1).astype(f32)
+
+    def zadd(*terms):
+        """Sum of the non-None terms; None when all are structural zeros."""
+        terms = [t for t in terms if t is not None]
+        if not terms:
+            return None
+        acc = terms[0]
+        for t in terms[1:]:
+            acc = acc + t
+        return acc
+
+    def zmul(a, b):
+        return None if a is None or b is None else a * b
+
+    # ---------------- buffer access --------------------------------------
+
+    def read_s(t):
+        """Full 8-row augmented state at knot t (rows 6-7 = previous
+        control; zeros at the pinned start)."""
+        return [ld(ss_ref, t, r) for r in range(_N)]
+
+    def write_s(t, s):
+        for r in range(_N):
+            st(ss_ref, s[r], t, r)
+
+    def read_u(t):
+        return [ld(us_ref, t, 0), ld(us_ref, t, 1)]
+
+    def read_g(t):
+        return [ld(g_ref, t, r) for r in range(4)]
+
+    def read_gains(t):
+        k = [ld(k_ref, t, 0), ld(k_ref, t, 1)]
+        K = [{j: ld(K_ref, t, m * _NK + c) for c, j in enumerate(_KCOLS)}
+             for m in range(2)]
+        return k, K
+
+    def feedback(u_b, kk, K, alpha, s_a, s_b):
+        """Clipped u = u_b + alpha k + K (s_a - s_b) (K col 4 is zero)."""
+        ds = {j: s_a[j] - s_b[j] for j in _KCOLS}
+        out = []
+        for m in range(2):
+            fb = zadd(*(K[m][j] * ds[j] for j in _KCOLS))
+            u = u_b[m] + alpha * kk[m] + fb
+            out.append(jnp.clip(u, lb[m], ub[m]))
+        return out
+
     # ---------------- rollout trigonometry -------------------------------
     # Every rollout (initial, the n_alpha line-search candidates, the
     # winner re-roll) starts from the SAME pinned state s0, and theta and
-    # etheta advance by the identical increment every step — u0*dt for
-    # diff_drive (FG_eval dynamics rows,
-    # /root/reference/mpc_ros/src/mpc_planner.cpp:210,214), (v/lf)*u0*dt
-    # for bicycle. Hence:
+    # etheta advance by the identical increment every step. Hence:
     #   * etheta_t = theta_t + phi with phi = etheta_0 - theta_0 constant
     #     for the WHOLE solve -> sin/cos(etheta) are two FMAs off
-    #     sin/cos(theta) (exact identity, both modes could use it);
+    #     sin/cos(theta);
     #   * in fast mode, cos/sin(theta) are carried through the rollout by
     #     rotation composition, the per-step increment's sin/cos coming
     #     from a 9th/8th-order Taylor (|d| <= 1: error < 3e-7) plus
     #     one Newton renormalization step.
-    # This removes ALL per-stage transcendentals from the solve: 4 sin/cos
-    # per solve instead of (n_alpha+2) rollouts x T x 3-4 per iteration.
+    # This removes all per-stage transcendentals from the rollouts.
 
-    s0 = jnp.concatenate(
-        [z0_ref[...], jnp.zeros((2,) + vshape, dtype)], axis=0)
-
-    def read_s(buf, t):
-        """Full 8-row augmented state at knot t: the six stored dynamic
-        rows plus the previous-control rows 6-7 reconstructed from
-        traj_u[buf, t-1] (zeros at t=0 — the pinned start has no previous
-        control). Rows 6-7 are traj_u duplicated bit-for-bit, so STORING
-        them wasted 4(T+1) floats/lane of VMEM scratch — the sub=8/T=59
-        kernel missed the 16 MB scoped limit by 632 KB with them, and
-        fits without (sub=8 holds to T<=63: ~2x for N in ~50-64)."""
-        pu = traj_u[buf, jnp.maximum(t - 1, 0)]
-        # select, don't multiply: at t=0 the clamped read hits knot 0's
-        # (possibly uninitialized) slot and 0 * NaN would poison the state
-        pu = jnp.where(t >= 1, pu, jnp.zeros_like(pu))
-        return jnp.concatenate([traj_s[buf, t], pu], axis=0)
-
-    traj_s[0, 0] = s0[:6]
+    s0 = [ld(z0_ref, r) for r in range(6)] + [zeros, zeros]
     ct00 = jnp.cos(s0[2])
     st00 = jnp.sin(s0[2])
     if fast_trig:
@@ -260,20 +324,19 @@ def _kernel(T: int, n_alpha: int, max_iters: int, sign: float,
         cphi = jnp.cos(phi)
         sphi = jnp.sin(phi)
 
-        def se_of(ct, st, s_a):
-            return st * cphi + ct * sphi
+        def se_of(ct, st_, s_a):
+            return st_ * cphi + ct * sphi
 
-        def ce_of(ct, st, s_a):
-            return ct * cphi - st * sphi
+        def ce_of(ct, st_, s_a):
+            return ct * cphi - st_ * sphi
 
         # diff_drive's increment is bounded by max_angvel*dt (<= 1 rad at
         # any documented operating point); the bicycle's v/lf*delta*dt is
         # not config-bounded, so its Taylor runs on the HALF angle and
-        # composes the rotation twice — exact-domain |d| <= 2 rad/step for
-        # ~5 extra FMAs (still transcendental-free)
+        # composes the rotation twice — exact-domain |d| <= 2 rad/step
         half = 0.5 if model == "bicycle" else 1.0
 
-        def step_trig(ct, st, d, s_next):
+        def step_trig(ct, st_, d, s_next):
             d = d * half
             z = d * d
             sd = d * (1.0 + z * (-1.0 / 6.0 + z * (1.0 / 120.0
@@ -282,117 +345,116 @@ def _kernel(T: int, n_alpha: int, max_iters: int, sign: float,
                       + z * (-1.0 / 720.0 + z * (1.0 / 40320.0))))
             if half != 1.0:
                 cd, sd = cd * cd - sd * sd, 2.0 * sd * cd   # double angle
-            c2 = ct * cd - st * sd
-            s2 = st * cd + ct * sd
+            c2 = ct * cd - st_ * sd
+            s2 = st_ * cd + ct * sd
             f = 1.5 - 0.5 * (c2 * c2 + s2 * s2)
             return c2 * f, s2 * f
     else:
-        def se_of(ct, st, s_a):
+        def se_of(ct, st_, s_a):
             return jnp.sin(s_a[5])
 
-        def ce_of(ct, st, s_a):
+        def ce_of(ct, st_, s_a):
             return jnp.cos(s_a[5])
 
-        def step_trig(ct, st, d, s_next):
+        def step_trig(ct, st_, d, s_next):
             return jnp.cos(s_next[2]), jnp.sin(s_next[2])
 
-    # ---------------- initial rollout into buffer 0 ----------------------
+    # ---------------- initial rollout ------------------------------------
+
+    write_s(0, s0)
 
     def init_body(t, carry):
-        acc, ct, st = carry
-        s_a = read_s(0, t)
-        u0 = u0_ref[t, 0]
-        u1 = u0_ref[t, 1]
-        traj_u[0, t] = jnp.stack([u0, u1])
-        rate = jnp.where(t >= 1, 1.0, 0.0).astype(dtype)
-        acc = acc + stage_cost(s_a, u0, u1, rate, t)
+        acc, ct, st_ = carry[:3]
+        s_a = list(carry[3:])
+        u0 = ld(u0_ref, t, 0)
+        u1 = ld(u0_ref, t, 1)
+        st(us_ref, u0, t, 0)
+        st(us_ref, u1, t, 1)
+        acc = acc + stage_cost(s_a, u0, u1, rate_of(t), t)
         # cache the stage trig for the backward pass
-        se = se_of(ct, st, s_a)
-        traj_g[t] = jnp.stack([ct, st, se, ce_of(ct, st, s_a)])
-        s_n = dyn_step(s_a, u0, u1, (ct, st, se))
-        traj_s[0, t + 1] = s_n[:6]
-        ct, st = step_trig(ct, st, dth_of(s_a[3], u0), s_n)
-        return (acc, ct, st)
+        se = se_of(ct, st_, s_a)
+        for r, val in enumerate((ct, st_, se, ce_of(ct, st_, s_a))):
+            st(g_ref, val, t, r)
+        s_n = dyn_step(s_a, u0, u1, (ct, st_, se))
+        write_s(t + 1, s_n)
+        ct, st_ = step_trig(ct, st_, dth_of(s_a[3], u0), s_n)
+        return (acc, ct, st_, *s_n)
 
-    cost0, _, _ = jax.lax.fori_loop(0, T, init_body, (zeros, ct00, st00))
-    cost0 = cost0 + term_cost(traj_s[0, T])
+    out0 = jax.lax.fori_loop(0, T, init_body, (zeros, ct00, st00, *s0))
+    cost0 = out0[0] + term_cost(list(out0[3:]))
 
     # ---------------- SQP loop -------------------------------------------
 
-    # Per-lane loop state packed as rows of ONE (8, sub, 128) tile stack:
-    # Mosaic rejects 1-D and mishandles (1, 128) while-loop carries.
-    R_COST, R_MU, R_NSMALL, R_DONE, R_CONV, R_GNORM, R_ITERS, R_PAD = range(8)
+    vidx = {}
+    for a_, i_ in enumerate(_VLIVE):
+        for j_ in _VLIVE[a_:]:
+            vidx[(i_, j_)] = len(vidx)
 
     def cond(carry):
-        # SolverConfig.done_frac applies PER TILE here (each program sees
-        # only its sub*128 lanes); stragglers keep their current iterate
-        it, cur, regs = carry
+        # SolverConfig.done_frac applies PER BLOCK here (each program sees
+        # only its own lanes); stragglers keep their current iterate
+        it, done = carry[0], carry[4]
         return jnp.logical_and(it < max_iters,
-                               jnp.sum(regs[R_DONE]) < n_done_needed - 0.5)
+                               jnp.sum(done) < n_done_needed - 0.5)
 
     def body(carry):
-        it, cur, regs = carry
-        cost = regs[R_COST]
-        mu = regs[R_MU]
-        n_small = regs[R_NSMALL]
-        done = regs[R_DONE]
-        conv = regs[R_CONV]
-        gnorm = regs[R_GNORM]
-        iters = regs[R_ITERS]
+        it, cost, mu, n_small, done, conv, gnorm, iters = carry
         act = 1.0 - done
 
         # per-lane GN->DDP hybrid gate (SolverConfig.ddp): exact
         # second-order terms (dynamics + the blob concave part) engage
         # once the previous iteration's projected gradient is below
         # ddp_gate (gnorm starts at +inf -> first iteration is pure GN)
-        g_ddp = (gnorm < ddp_gate).astype(dtype) if ddp else None
+        g_ddp = (gnorm < ddp_gate).astype(f32) if ddp else None
 
         # ---- backward scan with inline linearization ----
-        sT = traj_s[cur, T]
+        sT = read_s(T)
         if n_blobs:
             ogxT, ogyT, ohxxT, ohxyT, ohyyT = obs_terms(sT[0], sT[1],
                                                         gate=g_ddp)
         else:
             ogxT = ogyT = ohxxT = ohxyT = ohyyT = zeros
         rcT, reT, rvT = ref3(T)
-        Vs0 = jnp.stack([
-            ogxT, ogyT, zeros,
-            wv2 * (sT[3] - rvT),
-            wc2 * (sT[4] - rcT),
-            we2 * (sT[5] - reT),
-            zeros, zeros,
-        ])
-        diagT = [ohxxT, ohyyT, zeros, wv2, wc2, we2, zeros, zeros]
+        Vs0 = [ogxT, ogyT, zeros,
+               wv2 * (sT[3] - rvT),
+               wc2 * (sT[4] - rcT),
+               we2 * (sT[5] - reT),
+               zeros, zeros]
+        diagT = {0: ohxxT, 1: ohyyT, 2: zeros, 3: wv2, 5: we2, 6: zeros,
+                 7: zeros}
+        Vss0 = [None] * len(vidx)
+        for (i2, j2), n in vidx.items():
+            if i2 == j2:
+                Vss0[n] = diagT[i2]
+            elif (i2, j2) == (0, 1) and n_blobs:
+                Vss0[n] = ohxyT
+            else:
+                Vss0[n] = zeros
 
-        def vss0_entry(i, j):
-            if i == j:
-                return jnp.broadcast_to(diagT[i], vshape)
-            if n_blobs and {i, j} == {0, 1}:
-                return ohxyT
-            return zeros
+        def bwd_body(i_, bcarry):
+            Vs = list(bcarry[:_N])
+            Vflat = bcarry[_N:_N + len(vidx)]
+            dv1, dv2, pg = bcarry[_N + len(vidx):]
+            t = jnp.asarray(T - 1, jnp.int32) - i_
 
-        Vss0 = jnp.stack([
-            jnp.stack([vss0_entry(i, j) for j in range(_N)])
-            for i in range(_N)
-        ])
+            def V(i, j):
+                if i == 4 or j == 4:
+                    return wc2 if i == j else None
+                return Vflat[vidx[(i, j) if i <= j else (j, i)]]
 
-        def bwd_body(i, bcarry):
-            Vs, Vss, dv1, dv2, pg = bcarry
-            t = jnp.asarray(T - 1, jnp.int32) - i
-            s_t = read_s(cur, t)
-            u_t = traj_u[cur, t]
-            rate = jnp.where(t >= 1, 1.0, 0.0).astype(dtype)
+            s_t = read_s(t)
+            u_t = read_u(t)
+            rate = rate_of(t)
 
             x = s_t[0]
             v = s_t[3]
             eth = s_t[5]
-            g_t = traj_g[t]            # cached by the accepting rollout
-            ct, st, se, ce = g_t[0], g_t[1], g_t[2], g_t[3]
+            ct, st_, se, ce = read_g(t)   # cached by the accepting rollout
             fp = _polyder_tile(cf, x)
-            a02 = -v * st * dt
+            a02 = -v * st_ * dt
             a03 = ct * dt
             a12 = v * ct * dt
-            a13 = st * dt
+            a13 = st_ * dt
             a40 = fp
             a43 = sign * se * dt
             a45 = sign * v * ce * dt
@@ -407,24 +469,18 @@ def _kernel(T: int, n_alpha: int, max_iters: int, sign: float,
                 b20 = dt
 
             def At_vec(y):
-                z = jnp.zeros_like(y[0])
                 y3 = y[3] if a23 is None else y[3] + a23 * (y[2] + y[5])
-                return jnp.stack([
-                    y[0] + a40 * y[4],
-                    y[1] - y[4],
-                    a02 * y[0] + a12 * y[1] + y[2],
-                    a03 * y[0] + a13 * y[1] + y3 + a43 * y[4],
-                    z,
-                    a45 * y[4] + y[5],
-                    z,
-                    z,
-                ])
+                return [y[0] + a40 * y[4],
+                        y[1] - y[4],
+                        a02 * y[0] + a12 * y[1] + y[2],
+                        a03 * y[0] + a13 * y[1] + y3 + a43 * y[4],
+                        None,
+                        a45 * y[4] + y[5],
+                        None,
+                        None]
 
             def Bt_vec(y):
-                return jnp.stack([
-                    b20 * (y[2] + y[5]) + y[6],
-                    dt * y[3] + y[7],
-                ])
+                return [b20 * (y[2] + y[5]) + y[6], dt * y[3] + y[7]]
 
             wdw2 = 2.0 * rate * par[P_WDANG]
             wda2 = 2.0 * rate * par[P_WDACC]
@@ -434,95 +490,71 @@ def _kernel(T: int, n_alpha: int, max_iters: int, sign: float,
                 ogx, ogy, ohxx, ohxy, ohyy = obs_terms(s_t[0], s_t[1],
                                                        gate=g_ddp)
             else:
-                ogx = ogy = ohxx = ohxy = ohyy = zeros
+                ogx = ogy = ohxx = ohxy = ohyy = None
             rc_t, re_t, rv_t = ref3(t)
-            ls = jnp.stack([
-                ogx, ogy, zeros,
-                wv2 * (v - rv_t),
-                wc2 * (s_t[4] - rc_t),
-                we2 * (eth - re_t),
-                -wdw2 * du0,
-                -wda2 * du1,
-            ])
-            lu = jnp.stack([
-                ww2 * u_t[0] + wdw2 * du0,
-                wa2 * u_t[1] + wda2 * du1,
-            ])
+            ls = [ogx, ogy, None,
+                  wv2 * (v - rv_t),
+                  wc2 * (s_t[4] - rc_t),
+                  we2 * (eth - re_t),
+                  -wdw2 * du0,
+                  -wda2 * du1]
+            lu = [ww2 * u_t[0] + wdw2 * du0,
+                  wa2 * u_t[1] + wda2 * du1]
             lss_diag = [None, None, None, wv2, wc2, we2, wdw2, wda2]
 
-            Qs = ls + At_vec(Vs)
-            Qu = lu + Bt_vec(Vs)
+            Qs = [zadd(a, b) for a, b in zip(ls, At_vec(Vs))]
+            Qu = [a + b for a, b in zip(lu, Bt_vec(Vs))]
 
-            # Structured VA = Vss @ A, per entry. Column 4 of A is zero
-            # (nothing depends on cte_t — the cte defect uses f(x)-y, not
-            # cte, quirk Q10), so Vss row/col 4 is invariantly diag(wc2)
-            # and K/Qus column 4 is exactly zero at every stage; None
-            # marks structural zeros and drops their ops entirely.
-            def zadd(*terms):
-                terms = [t for t in terms if t is not None]
-                if not terms:
-                    return None
-                acc = terms[0]
-                for t in terms[1:]:
-                    acc = acc + t
-                return acc
-
-            va0 = [Vss[i, 0] for i in range(_N)]
+            # Structured VA = Vss @ A, per entry (column j of VA as a
+            # list over rows i); None marks structural zeros
+            va0 = [V(i, 0) for i in range(_N)]
             va0[4] = a40 * wc2
-            va1 = [Vss[i, 1] for i in range(_N)]
+            va1 = [V(i, 1) for i in range(_N)]
             va1[4] = -wc2
-            va2 = [a02 * Vss[i, 0] + a12 * Vss[i, 1] + Vss[i, 2]
-                   for i in range(_N)]
-            va2[4] = None
-            if a23 is None:
-                va3 = [a03 * Vss[i, 0] + a13 * Vss[i, 1] + Vss[i, 3]
-                       for i in range(_N)]
-            else:
-                va3 = [a03 * Vss[i, 0] + a13 * Vss[i, 1] + Vss[i, 3]
-                       + a23 * (Vss[i, 2] + Vss[i, 5]) for i in range(_N)]
+            va2 = [zadd(a02 * V(i, 0), a12 * V(i, 1), V(i, 2))
+                   if i != 4 else None for i in range(_N)]
+            va3 = [zadd(a03 * V(i, 0), a13 * V(i, 1), V(i, 3),
+                        None if a23 is None else a23 * (V(i, 2) + V(i, 5)))
+                   if i != 4 else None for i in range(_N)]
             # row 4's (4,2)/(4,5) entries are structurally zero, so the
             # bicycle a23 term drops out of the row-4 invariant too
             va3[4] = a43 * wc2
-            va5 = [Vss[i, 5] for i in range(_N)]
+            va5 = [V(i, 5) for i in range(_N)]
             va5[4] = a45 * wc2
             va = {0: va0, 1: va1, 2: va2, 3: va3, 5: va5}
-            _LIVE = (0, 1, 2, 3, 5)
 
             def atva(i, j):
                 """(A' Vss A)[i, j] for live i, j; rows/cols 4, 6, 7 zero."""
                 y = va[j]
                 y4 = y[4]
                 if i == 0:
-                    return zadd(y[0], None if y4 is None else a40 * y4)
+                    return zadd(y[0], zmul(a40, y4))
                 if i == 1:
                     return zadd(y[1], None if y4 is None else -y4)
                 if i == 2:
                     return zadd(a02 * y[0], a12 * y[1], y[2])
                 if i == 3:
-                    return zadd(a03 * y[0], a13 * y[1], y[3],
-                                None if y4 is None else a43 * y4,
+                    return zadd(a03 * y[0], a13 * y[1], y[3], zmul(a43, y4),
                                 None if a23 is None
                                 else a23 * (y[2] + y[5]))
-                return zadd(None if y4 is None else a45 * y4,
-                            y[5])                      # i == 5
+                return zadd(zmul(a45, y4), y[5])           # i == 5
 
             if ddp:
                 # exact d2f/ds2 contractions with Vs (rows 0/1: v cos/sin
                 # theta; row 4: f(x) and v sin(etheta)); all entries avoid
-                # the structural row/col 4, so the kernel's invariants hold
+                # the structural row/col 4, so the invariants hold
                 fpp = _polyder2_tile(cf, x)
                 dmap = {
                     (0, 0): Vs[4] * fpp * g_ddp,
-                    (2, 2): -v * dt * (Vs[0] * ct + Vs[1] * st) * g_ddp,
-                    (2, 3): dt * (Vs[1] * ct - Vs[0] * st) * g_ddp,
+                    (2, 2): -v * dt * (Vs[0] * ct + Vs[1] * st_) * g_ddp,
+                    (2, 3): dt * (Vs[1] * ct - Vs[0] * st_) * g_ddp,
                     (3, 5): sign * dt * ce * Vs[4] * g_ddp,
                     (5, 5): -sign * dt * v * se * Vs[4] * g_ddp,
                 }
 
             def qss_entry(i, j):
-                e = (atva(i, j)
-                     if (i in _LIVE and j in _LIVE) else None)
-                if i == j and lss_diag[i] is not None:
+                e = atva(i, j) if (i in _ALIVE and j in _ALIVE) else None
+                if i == j:
                     e = zadd(e, lss_diag[i])
                 if n_blobs:
                     if i == 0 and j == 0:
@@ -532,16 +564,14 @@ def _kernel(T: int, n_alpha: int, max_iters: int, sign: float,
                     elif {i, j} == {0, 1}:
                         e = zadd(e, ohxy)
                 if ddp:
-                    d = dmap.get((i, j) if i <= j else (j, i))
-                    if d is not None:
-                        e = zadd(e, d)
+                    e = zadd(e, dmap.get((i, j) if i <= j else (j, i)))
                 return e
 
             # Qus = B' Vss A + l_us per entry (col 4 zero; cols 6/7 are the
             # rate-coupling constants)
             qus0 = {j: zadd(b20 * zadd(va[j][2], va[j][5]), va[j][6])
-                    for j in _LIVE}
-            qus1 = {j: zadd(dt * va[j][3], va[j][7]) for j in _LIVE}
+                    for j in _ALIVE}
+            qus1 = {j: zadd(dt * va[j][3], va[j][7]) for j in _ALIVE}
             qus0[4] = qus1[4] = None
             qus0[6], qus1[6] = -wdw2, None
             qus0[7], qus1[7] = None, -wda2
@@ -549,66 +579,60 @@ def _kernel(T: int, n_alpha: int, max_iters: int, sign: float,
                 # theta rows 2/5: d2((v/lf) delta dt)/dv ddelta -> Qus[0,3]
                 qus0[3] = zadd(qus0[3],
                                (Vs[2] + Vs[5]) * (invlf * dt) * g_ddp)
-            Qus = jnp.stack([
-                jnp.stack([qus0[j] if qus0[j] is not None else zeros
-                           for j in range(_N)]),
-                jnp.stack([qus1[j] if qus1[j] is not None else zeros
-                           for j in range(_N)]),
-            ])
-            VB0 = b20 * (Vss[:, 2] + Vss[:, 5]) + Vss[:, 6]
-            VB1 = dt * Vss[:, 3] + Vss[:, 7]
-            VB = jnp.stack([VB0, VB1], axis=1)
-            BtVB = Bt_vec(VB)
-            offd = 0.5 * (BtVB[0, 1] + BtVB[1, 0])
-            Quu = jnp.stack([
-                jnp.stack([BtVB[0, 0] + ww2 + wdw2, offd]),
-                jnp.stack([offd, BtVB[1, 1] + wa2 + wda2]),
-            ])
-            Quu_reg = jnp.stack([
-                jnp.stack([Quu[0, 0] + mu, Quu[0, 1]]),
-                jnp.stack([Quu[1, 0], Quu[1, 1] + mu]),
-            ])
+            # B' Vss B: VB columns over the rows Bt_vec reads
+            VB0 = {i: b20 * (V(i, 2) + V(i, 5)) + V(i, 6)
+                   for i in (2, 3, 5, 6, 7)}
+            VB1 = {i: dt * V(i, 3) + V(i, 7) for i in (2, 3, 5, 6, 7)}
+            BtVB = [Bt_vec(VB0), Bt_vec(VB1)]           # [col][row]
+            offd = 0.5 * (BtVB[1][0] + BtVB[0][1])
+            q00 = BtVB[0][0] + ww2 + wdw2
+            q11 = BtVB[1][1] + wa2 + wda2
+            Quu = ((q00, offd), (offd, q11))
 
-            k, K = _boxqp_tile(Quu_reg, Qu, lb - u_t, ub - u_t, Qus, dtype)
+            (k0, k1), (j00, j01, j10, j11) = _boxqp_tile(
+                ((q00 + mu, offd), (offd, q11 + mu)), Qu,
+                (lb[0] - u_t[0], lb[1] - u_t[1]),
+                (ub[0] - u_t[0], ub[1] - u_t[1]))
+            K = [{j: -zadd(zmul(j00, qus0[j]), zmul(j01, qus1[j]))
+                  for j in _KCOLS},
+                 {j: -zadd(zmul(j10, qus0[j]), zmul(j11, qus1[j]))
+                  for j in _KCOLS}]
 
-            Quu_k = _mv(Quu, k, _M, _M)
+            Quu_k = [Quu[0][0] * k0 + Quu[0][1] * k1,
+                     Quu[1][0] * k0 + Quu[1][1] * k1]
             # Vs_n = Qs + K'(Quu k + Qu) + Qus' k (one folded matvec)
-            ku = jnp.stack([Quu_k[0] + Qu[0], Quu_k[1] + Qu[1]])
-            Vs_n = Qs + _mtv(K, ku, _N, _M) + _mtv(Qus, k, _N, _M)
-            KtQuu = _mtm(K, Quu, _N, _M, _M)
+            ku = [Quu_k[0] + Qu[0], Quu_k[1] + Qu[1]]
+            Vs_n = []
+            for i in range(_N):
+                Kc = [None if i == 4 else K[m][i] for m in range(2)]
+                e = zadd(Qs[i], zadd(zmul(Kc[0], ku[0]), zmul(Kc[1], ku[1])),
+                         zadd(zmul(qus0[i], k0), zmul(qus1[i], k1)))
+                Vs_n.append(zeros if e is None else e)
+            KtQuu = {i: (K[0][i] * Quu[0][0] + K[1][i] * Quu[1][0],
+                         K[0][i] * Quu[0][1] + K[1][i] * Quu[1][1])
+                     for i in _KCOLS}
 
             def cross(i, j):
                 """(K' Qus)[i, j] with structural-zero Qus columns dropped."""
-                return zadd(
-                    None if qus0[j] is None else K[0, i] * qus0[j],
-                    None if qus1[j] is None else K[1, i] * qus1[j])
+                return zadd(zmul(K[0][i], qus0[j]), zmul(K[1][i], qus1[j]))
 
             # Vss_n = Qss + K'Quu K + K'Qus + (K'Qus)' is symmetric by
-            # construction (Quu is); build only the upper triangle and
-            # mirror — half the entry math and no 0.5*(V+V') pass. Row/col
-            # 4 is structural: K/Qus col 4 and A col 4 are zero, so the
-            # entry is exactly diag(wc2).
-            vrows = [[None] * _N for _ in range(_N)]
-            for i2 in range(_N):
-                for j2 in range(i2, _N):
-                    if i2 == 4 or j2 == 4:
-                        e = wc2 if i2 == j2 else None
-                    else:
-                        e = zadd(qss_entry(i2, j2),
-                                 KtQuu[i2, 0] * K[0, j2]
-                                 + KtQuu[i2, 1] * K[1, j2],
-                                 cross(i2, j2), cross(j2, i2))
-                    vrows[i2][j2] = e
-                    if j2 != i2:
-                        vrows[j2][i2] = e
-            Vss_n = jnp.stack([
-                jnp.stack([x if x is not None else zeros for x in r])
-                for r in vrows])
+            # construction (Quu is); build only the upper triangle over
+            # the carried indices
+            Vss_n = [None] * len(vidx)
+            for (i2, j2), n in vidx.items():
+                e = zadd(qss_entry(i2, j2),
+                         KtQuu[i2][0] * K[0][j2] + KtQuu[i2][1] * K[1][j2],
+                         cross(i2, j2), cross(j2, i2))
+                Vss_n[n] = zeros if e is None else e
 
-            ks_ref[t] = k
-            Ks_ref[t] = K
-            dv1 = dv1 + k[0] * Qu[0] + k[1] * Qu[1]
-            dv2 = dv2 + 0.5 * (k[0] * Quu_k[0] + k[1] * Quu_k[1])
+            st(k_ref, k0, t, 0)
+            st(k_ref, k1, t, 1)
+            for m in range(2):
+                for c, j in enumerate(_KCOLS):
+                    st(K_ref, K[m][j], t, m * _NK + c)
+            dv1 = dv1 + k0 * Qu[0] + k1 * Qu[1]
+            dv2 = dv2 + 0.5 * (k0 * Quu_k[0] + k1 * Quu_k[1])
             # pg on the weight-scale-NORMALIZED gradient (inv_wscl == 1/s;
             # equals the c=1 problem's pg for uniform weight scalings)
             pg_t = jnp.maximum(
@@ -616,126 +640,97 @@ def _kernel(T: int, n_alpha: int, max_iters: int, sign: float,
                                           lb[0], ub[0])),
                 jnp.abs(u_t[1] - jnp.clip(u_t[1] - Qu[1] * inv_wscl,
                                           lb[1], ub[1])))
-            return (Vs_n, Vss_n, dv1, dv2, jnp.maximum(pg, pg_t))
+            return (*Vs_n, *Vss_n, dv1, dv2, jnp.maximum(pg, pg_t))
 
-        # fully unrolled: Mosaic supports only unroll=1 or full unroll;
-        # unrolling the backward scan lets the scheduler overlap stages and
-        # removes per-step loop overhead (~40% kernel-time win at T=29;
-        # unrolling the forward rollouts measured no further gain). Long
-        # horizons keep the rolled loop — full unroll at T=99 would blow
-        # compile time for a pass that is no longer the bottleneck there
-        _, _, dv1, dv2, pg = jax.lax.fori_loop(
-            0, T, bwd_body, (Vs0, Vss0, zeros, zeros, zeros),
-            unroll=unroll_bwd)
+        bout = jax.lax.fori_loop(0, T, bwd_body,
+                                 (*Vs0, *Vss0, zeros, zeros, zeros))
+        dv1, dv2, pg = bout[-3:]
 
         pred_decrease = -(dv1 + dv2)
         # wscl floor: tol*(s+|J|) keeps the relative-cost guards exactly
         # equivariant under uniform weight scaling (matches ilqr/batch_lane)
         tiny_model = (pred_decrease
-                      <= tol_cost_eff * (wscl + jnp.abs(cost))).astype(dtype)
+                      <= tol_cost_eff * (wscl + jnp.abs(cost))).astype(f32)
 
-        # ---- multi-alpha line search ----
-        s0_t = read_s(cur, 0)
-        for a in range(n_alpha):
-            s_scr[pl.ds(a * _N, _N)] = s0_t
+        # ---- multi-alpha line search (candidates held in registers) ----
+        s0_t = read_s(0)
 
         def roll_body(t, carry):
             accs = carry[:n_alpha]
             cts = carry[n_alpha:2 * n_alpha]
-            sts = carry[2 * n_alpha:]
-            s_b = read_s(cur, t)
-            u_b = traj_u[cur, t]
-            k = ks_ref[t]
-            K = Ks_ref[t]
-            rate = jnp.where(t >= 1, 1.0, 0.0).astype(dtype)
-            new_accs, new_cts, new_sts = [], [], []
+            sts = carry[2 * n_alpha:3 * n_alpha]
+            s_all = carry[3 * n_alpha:]
+            s_b = read_s(t)
+            u_b = read_u(t)
+            kk, K = read_gains(t)
+            rate = rate_of(t)
+            new_accs, new_cts, new_sts, new_s = [], [], [], []
             for a in range(n_alpha):
-                s_a = s_scr[pl.ds(a * _N, _N)]
-                ds = s_a - s_b
-                # K col 4 is structurally zero (cte never feeds forward)
-                u0 = u_b[0] + alphas[a] * k[0] + sum(
-                    K[0, j] * ds[j] for j in range(_N) if j != 4)
-                u1 = u_b[1] + alphas[a] * k[1] + sum(
-                    K[1, j] * ds[j] for j in range(_N) if j != 4)
-                u0 = jnp.clip(u0, lb[0], ub[0])
-                u1 = jnp.clip(u1, lb[1], ub[1])
+                s_a = list(s_all[a * _N:(a + 1) * _N])
+                u0, u1 = feedback(u_b, kk, K, alphas[a], s_a, s_b)
                 new_accs.append(accs[a] + stage_cost(s_a, u0, u1, rate, t))
                 se = se_of(cts[a], sts[a], s_a)
                 s_n = dyn_step(s_a, u0, u1, (cts[a], sts[a], se))
-                s_scr[pl.ds(a * _N, _N)] = s_n
                 nct, nst = step_trig(cts[a], sts[a], dth_of(s_a[3], u0), s_n)
                 new_cts.append(nct)
                 new_sts.append(nst)
-            return tuple(new_accs) + tuple(new_cts) + tuple(new_sts)
+                new_s.extend(s_n)
+            return (*new_accs, *new_cts, *new_sts, *new_s)
 
-        carry = jax.lax.fori_loop(
+        rout = jax.lax.fori_loop(
             0, T, roll_body,
-            tuple(zeros for _ in range(n_alpha))
-            + tuple(ct00 for _ in range(n_alpha))
-            + tuple(st00 for _ in range(n_alpha)))
-        accs = carry[:n_alpha]
-        costs = [accs[a] + term_cost(s_scr[pl.ds(a * _N, _N)])
+            (*([zeros] * n_alpha), *([ct00] * n_alpha),
+             *([st00] * n_alpha), *(s0_t * n_alpha)))
+        s_fin = rout[3 * n_alpha:]
+        costs = [rout[a] + term_cost(list(s_fin[a * _N:(a + 1) * _N]))
                  for a in range(n_alpha)]
 
         picked = zeros
         alpha_sel = zeros
         cost_sel = cost
         for a in range(n_alpha):
-            improved = (costs[a] < cost).astype(dtype)
+            improved = (costs[a] < cost).astype(f32)
             take = improved * (1.0 - jnp.minimum(picked, 1.0))
             picked = picked + take
             alpha_sel = alpha_sel + take * alphas[a]
             cost_sel = jnp.where(take > 0.5, costs[a], cost_sel)
         accepted = jnp.minimum(picked, 1.0)
         upd = accepted * act
+        take_new = upd > 0.5
 
-        # ---- winner re-roll into the other buffer (masked) ----
-        nxt = 1 - cur
-        traj_s[nxt, 0] = s0_t[:6]
-        s_scr[pl.ds(0, _N)] = s0_t
-
+        # ---- winner re-roll, written in place (masked) ----
+        # step t reads the OLD knot t+1 before overwriting it and carries
+        # it as the next step's reference state
         def sel_body(t, carry):
-            ct, st = carry
-            s_b = read_s(cur, t)
-            u_b = traj_u[cur, t]
-            k = ks_ref[t]
-            K = Ks_ref[t]
-            s_a = s_scr[pl.ds(0, _N)]
-            ds = s_a - s_b
-            u0 = u_b[0] + alpha_sel * k[0] + sum(
-                K[0, j] * ds[j] for j in range(_N) if j != 4)
-            u1 = u_b[1] + alpha_sel * k[1] + sum(
-                K[1, j] * ds[j] for j in range(_N) if j != 4)
-            u0 = jnp.clip(u0, lb[0], ub[0])
-            u1 = jnp.clip(u1, lb[1], ub[1])
-            se = se_of(ct, st, s_a)
-            g_n = jnp.stack([ct, st, se, ce_of(ct, st, s_a)])
-            # the trig cache blends exactly like the states it describes
-            # (upd is a 0/1 mask, so blend(trig) == trig(blend))
-            # single-buffered: the blend reads and writes the SAME knot,
-            # and nothing else reads knot t between this write and the
-            # next backward pass — in-place is safe (unlike traj_s/traj_u,
-            # where sel_body step t+1 still needs the OLD [t+1] as s_b)
-            traj_g[t] = (upd[None, :] * g_n
-                         + (1.0 - upd)[None, :] * traj_g[t])
-            s_n = dyn_step(s_a, u0, u1, (ct, st, se))
-            s_scr[pl.ds(0, _N)] = s_n
-            traj_u[nxt, t] = (upd[None, :] * jnp.stack([u0, u1])
-                              + (1.0 - upd)[None, :] * u_b)
-            traj_s[nxt, t + 1] = (upd[None, :] * s_n[:6]
-                                  + (1.0 - upd)[None, :] * traj_s[cur, t + 1])
-            return step_trig(ct, st, dth_of(s_a[3], u0), s_n)
+            ct, st_ = carry[:2]
+            s_a = list(carry[2:2 + _N])
+            s_b = list(carry[2 + _N:])
+            u_b = read_u(t)
+            kk, K = read_gains(t)
+            u0, u1 = feedback(u_b, kk, K, alpha_sel, s_a, s_b)
+            se = se_of(ct, st_, s_a)
+            g_new = (ct, st_, se, ce_of(ct, st_, s_a))
+            for r, (gn, go) in enumerate(zip(g_new, read_g(t))):
+                st(g_ref, jnp.where(take_new, gn, go), t, r)
+            s_n = dyn_step(s_a, u0, u1, (ct, st_, se))
+            s_old = read_s(t + 1)
+            st(us_ref, jnp.where(take_new, u0, u_b[0]), t, 0)
+            st(us_ref, jnp.where(take_new, u1, u_b[1]), t, 1)
+            write_s(t + 1, [jnp.where(take_new, a, b)
+                            for a, b in zip(s_n, s_old)])
+            ct, st_ = step_trig(ct, st_, dth_of(s_a[3], u0), s_n)
+            return (ct, st_, *s_n, *s_old)
 
-        jax.lax.fori_loop(0, T, sel_body, (ct00, st00))
-        cost2 = jnp.where(upd > 0.5, cost_sel, cost)
+        jax.lax.fori_loop(0, T, sel_body, (ct00, st00, *s0_t, *s0_t))
+        cost2 = jnp.where(take_new, cost_sel, cost)
 
         # ---- per-lane bookkeeping (matches batch_lane) ----
         mu2 = jnp.where(
-            upd > 0.5, jnp.maximum(mu / mu_factor, mu_lo),
+            take_new, jnp.maximum(mu / mu_factor, mu_lo),
             jnp.where(act > 0.5, jnp.minimum(mu * mu_factor, mu_hi), mu))
         small_step = accepted * (
             jnp.abs(cost - cost2)
-            <= tol_cost_eff * (wscl + jnp.abs(cost))).astype(dtype)
+            <= tol_cost_eff * (wscl + jnp.abs(cost))).astype(f32)
         n_small2 = jnp.where(act > 0.5,
                              jnp.where(small_step > 0.5, n_small + 1.0, 0.0),
                              n_small)
@@ -743,69 +738,48 @@ def _kernel(T: int, n_alpha: int, max_iters: int, sign: float,
         # open; under inflated mu it is a stall only if the step was ALSO
         # rejected — accepted tiny steps keep iterating while mu decays
         # toward an honest certificate (see ilqr.py) — per lane
-        mu_open = (mu <= mu_lo * mu_factor).astype(dtype)
+        mu_open = (mu <= mu_lo * mu_factor).astype(f32)
         converged_now = jnp.maximum(
-            jnp.maximum((pg < tol_grad).astype(dtype),
-                        (n_small2 >= 2.0).astype(dtype)),
+            jnp.maximum((pg < tol_grad).astype(f32),
+                        (n_small2 >= 2.0).astype(f32)),
             tiny_model * mu_open)
         stalled = jnp.maximum(
-            (1.0 - accepted) * (mu2 >= mu_hi).astype(dtype),
+            (1.0 - accepted) * (mu2 >= mu_hi).astype(f32),
             tiny_model * (1.0 - mu_open) * (1.0 - accepted))
         done2 = jnp.where(act > 0.5,
                           jnp.maximum(converged_now, stalled), done)
         conv2 = jnp.where(act > 0.5, converged_now, conv)
         gnorm2 = jnp.where(act > 0.5, pg, gnorm)
         iters2 = iters + act
-        regs2 = jnp.stack([cost2, mu2, n_small2, done2, conv2, gnorm2,
-                           iters2, zeros])
-        return (it + 1, nxt, regs2)
+        return (it + 1, cost2, mu2, n_small2, done2, conv2, gnorm2, iters2)
 
     if has_resume:
         # warm restart: (done, conv, mu, gnorm) carried from a previous
-        # pass. Done lanes never enter the body (act = 0), and a tile whose
-        # lanes are ALL done exits the while loop before its first
-        # iteration — it pays only the initial rollout + writeback.
-        r0 = resume_ref[...]
-        regs0 = jnp.stack([
-            cost0, r0[2], zeros, r0[0], r0[1], r0[3], zeros, zeros])
+        # pass. Done lanes never enter the body (act = 0), and a block
+        # whose lanes are ALL done exits the while loop before its first
+        # iteration — it pays only the initial rollout.
+        carry0 = (cost0, ld(resume_ref, 2), zeros, ld(resume_ref, 0),
+                  ld(resume_ref, 1), ld(resume_ref, 3), zeros)
     else:
-        regs0 = jnp.stack([
-            cost0, jnp.broadcast_to(mu_lo, vshape).astype(dtype), zeros,
-            zeros, zeros, jnp.full(vshape, jnp.inf, dtype), zeros, zeros])
-    (_, cur_f, regs_f) = jax.lax.while_loop(
-        cond, body, (jnp.asarray(0, jnp.int32), jnp.asarray(0, jnp.int32),
-                     regs0))
-    cost_f = regs_f[R_COST]
-    mu_f = regs_f[R_MU]
-    conv_f = regs_f[R_CONV]
-    gnorm_f = regs_f[R_GNORM]
-    iters_f = regs_f[R_ITERS]
-    done_f = regs_f[R_DONE]
+        carry0 = (cost0, jnp.broadcast_to(mu_lo, (block,)).astype(f32),
+                  zeros, zeros, zeros, jnp.full((block,), jnp.inf, f32),
+                  zeros)
+    (_, cost_f, mu_f, _, done_f, conv_f, gnorm_f, iters_f) = (
+        jax.lax.while_loop(cond, body,
+                           (jnp.asarray(0, jnp.int32), *carry0)))
 
-    # ---- outputs ----
-    def out_body(t, _):
-        ss_out[t] = read_s(cur_f, t)
-
-        @pl.when(t < T)
-        def _():
-            us_out[t] = traj_u[cur_f, t]
-
-        return 0
-
-    jax.lax.fori_loop(0, T + 1, out_body, 0)
-    cost_out[0] = cost_f
-    conv_out[0] = conv_f
-    iters_out[0] = iters_f
-    gnorm_out[0] = gnorm_f
-    mu_out[0] = mu_f
-    done_out[0] = done_f
+    for row, val in ((STAT_COST, cost_f), (STAT_CONV, conv_f),
+                     (STAT_ITERS, iters_f), (STAT_GNORM, gnorm_f),
+                     (STAT_MU, mu_f), (STAT_DONE, done_f)):
+        st(stat_ref, val, row)
 
 
 def solve_pallas(zT, cT, params_pack, lb, ub, u0, cfg, *, dtype=jnp.float32,
                  interpret: bool = False, blobs=None, resume=None,
-                 refs=None):
-    """Whole-solve megakernel. Batch-last inputs: zT (6,B), cT (4,B),
-    params_pack (12,B), lb/ub (2,B), u0 (T,2,B) initial controls.
+                 refs=None, block: int = BLOCK, num_warps: int | None = None):
+    """Whole-solve kernel. Batch-last inputs: zT (6,B), cT (P,B),
+    params_pack (N_PAR,B) from `pack_params`, lb/ub (2,B), u0 (T,2,B)
+    initial controls.
 
     `refs`: optional lane-major (T+1, 3, B) per-knot
     (ref_cte, ref_etheta, ref_vel) setpoint profiles — the time-indexed
@@ -819,169 +793,115 @@ def solve_pallas(zT, cT, params_pack, lb, ub, u0, cfg, *, dtype=jnp.float32,
     `blobs`: optional lane-major parametric obstacles — a tuple of four
     (K, B) arrays (cx, cy, gamma, w) from `GaussianObstacles.lane()`. The
     penalty, its gradient and its PSD Gauss-Newton curvature are evaluated
-    inline per stage (pure VPU math — this is why grids stay on the XLA
-    path but blobs run at full megakernel speed).
+    inline per stage.
 
     `resume`: optional warm-restart state — a tuple of four (B,) arrays
-    (done, conv, mu, gnorm) from a previous pass (see the scheduled
-    two-pass driver below). Done lanes pass through untouched; a tile of
-    only done lanes exits before its first iteration.
+    (done, conv, mu, gnorm) from a previous pass (see the two-pass
+    schedules below). Done lanes pass through untouched; a block of only
+    done lanes exits before its first iteration.
+
+    The batch is padded up to a whole number of `block`-lane programs by
+    repeating the last lane; each lane's result does not depend on the
+    blocking (done lanes stop changing), except through `cfg.done_frac`,
+    which applies per block.
+
+    The kernel runs compiled on a GPU only; `interpret=True` runs it on
+    the CPU through the Pallas interpreter (tests). Anything else raises.
 
     Returns (ss (T+1,8,B), us (T,2,B), cost (B,), conv (B,), iters (B,),
     gnorm (B,), mu (B,), done (B,)).
     """
+    if not interpret and jax.default_backend() != "gpu":
+        raise ValueError(
+            "the whole-solve kernel is compiled for the GPU only (found "
+            f"{jax.default_backend()!r}); use SolverConfig(backward='xla') "
+            "or interpret=True")
+    if dtype != jnp.float32:
+        raise ValueError(f"the whole-solve kernel is float32-only, got "
+                         f"{jnp.dtype(dtype)}")
     T = cfg.n_controls
     B = zT.shape[-1]
-    assert B % _LANES == 0
+    blk = lane_block(B, block)
+    Bp = padded_batch(B, block)
     tol_cost_eff = max(cfg.tol_cost, 10.0 * float(jnp.finfo(dtype).eps))
     n_blobs = 0 if blobs is None else blobs[0].shape[0]
     n_ls = cfg.ls_for(dtype)
-    sub = _pick_sub(B, T, n_ls,
-                    extra=0 if refs is None else (T + 1) * 3)
-    n_prog = B // (sub * _LANES)
-    grid = (n_prog,)
 
-    def rsh(a):
-        """(..., B) -> (..., n_prog, sub, 128): one (sub, 128) batch tile
-        per program. The block's trailing dims (sub, 128) EQUAL the array
-        dims, satisfying Mosaic's tiling rule for any sub (a plain
-        (..., sub*i : sub*(i+1), :) window would need sub % 8 == 0)."""
+    def prep(a):
         a = jnp.asarray(a, dtype)
-        return a.reshape(a.shape[:-1] + (n_prog, sub, _LANES))
+        if Bp == B:
+            return a
+        pad = [(0, 0)] * (a.ndim - 1) + [(0, Bp - B)]
+        return jnp.pad(a, pad, mode="edge")
 
-    def lane_spec(*dims):
-        ndim = len(dims)
-        return pl.BlockSpec(
-            dims + (None, sub, _LANES),     # None squeezes the grid dim
-            lambda i, nd=ndim: (0,) * nd + (i, 0, 0),
-            memory_space=pltpu.VMEM,
-        )
-
-    tile = sub * _LANES
-    n_done_needed = (tile if cfg.done_frac >= 1.0
-                     else min(tile, int(math.ceil(cfg.done_frac * tile))))
+    n_done_needed = (blk if cfg.done_frac >= 1.0
+                     else min(blk, int(math.ceil(cfg.done_frac * blk))))
     kernel = functools.partial(
         _kernel, T, n_ls, cfg.max_sqp_iters, float(cfg.cte_vsin_sign),
         float(cfg.tol_grad_for(dtype)), float(tol_cost_eff),
         float(cfg.mu_init_for(dtype, n_blobs > 0)),
-        float(cfg.mu_max), float(cfg.mu_factor), dtype, n_blobs, sub,
-        # full unroll wins ~40% kernel time at T<=48 on hardware; in
-        # interpret mode (tests) and at long horizons it only bloats
-        # trace/compile time
-        n_done_needed, bool(T <= 48 and not interpret),
-        resume is not None, refs is not None, cfg.trig == "fast", cfg.model,
-        cfg.ddp_for(dtype),
+        float(cfg.mu_max), float(cfg.mu_factor), cT.shape[0], n_blobs, blk,
+        n_done_needed, resume is not None, refs is not None,
+        cfg.trig == "fast", cfg.model, cfg.ddp_for(dtype),
         # blob ensembles cap the auto gate at 0.75 (basin stability with
         # the exact blob curvature — policy in SolverConfig.gate_for)
         float(cfg.gate_for(n_blobs > 0, dtype)), cfg.scale_adaptive)
-    setp_inputs = [] if refs is None else [rsh(refs)]
-    setp_specs = [] if refs is None else [lane_spec(T + 1, 3)]
-    resume_inputs = [] if resume is None else [rsh(jnp.stack(resume))]
-    resume_specs = [] if resume is None else [lane_spec(4)]
-    blob_inputs = [] if n_blobs == 0 else [rsh(a) for a in blobs]
-    blob_specs = [] if n_blobs == 0 else [lane_spec(n_blobs)] * 4
-    out = pl.pallas_call(
+    inputs = [zT, cT, params_pack, lb, ub, u0]
+    if refs is not None:
+        inputs.append(refs)
+    if resume is not None:
+        inputs.append(jnp.stack(resume))
+    if n_blobs:
+        inputs.extend(blobs)
+    sds = lambda *shape: jax.ShapeDtypeStruct(shape + (Bp,), dtype)
+    ss, us, stats, *_ = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[
-            lane_spec(6),            # z0
-            lane_spec(cT.shape[0]),  # coeffs: any polynomial order
-            lane_spec(N_PAR),        # params
-            lane_spec(_M),           # lb
-            lane_spec(_M),           # ub
-            lane_spec(T, _M),        # u_init
-        ] + setp_specs + resume_specs + blob_specs,
-        out_specs=[
-            lane_spec(T + 1, _N),
-            lane_spec(T, _M),
-            lane_spec(1),
-            lane_spec(1),
-            lane_spec(1),
-            lane_spec(1),
-            lane_spec(1),
-            lane_spec(1),
-        ],
+        grid=(Bp // blk,),
         out_shape=[
-            jax.ShapeDtypeStruct((T + 1, _N, n_prog, sub, _LANES), dtype),
-            jax.ShapeDtypeStruct((T, _M, n_prog, sub, _LANES), dtype),
-            jax.ShapeDtypeStruct((1, n_prog, sub, _LANES), dtype),
-            jax.ShapeDtypeStruct((1, n_prog, sub, _LANES), dtype),
-            jax.ShapeDtypeStruct((1, n_prog, sub, _LANES), dtype),
-            jax.ShapeDtypeStruct((1, n_prog, sub, _LANES), dtype),
-            jax.ShapeDtypeStruct((1, n_prog, sub, _LANES), dtype),
-            jax.ShapeDtypeStruct((1, n_prog, sub, _LANES), dtype),
+            sds(T + 1, _N),      # trajectory (also the working copy)
+            sds(T, 2),           # controls (also the working copy)
+            sds(6),              # per-lane stats (STAT_* rows)
+            sds(T, 4),           # trig cache of the accepted rollout
+            sds(T, 2),           # feedforward steps k
+            sds(T, 2 * _NK),     # feedback gains K (col 4 dropped)
         ],
-        scratch_shapes=[
-            pltpu.VMEM((2, T + 1, 6, sub, _LANES), dtype),    # traj_s (rows 6-7 live in traj_u — see read_s)
-            pltpu.VMEM((2, T, _M, sub, _LANES), dtype),       # traj_u
-            pltpu.VMEM((T, 4, sub, _LANES), dtype),           # traj_g (trig, single-buffered)
-            pltpu.VMEM((T, _M, sub, _LANES), dtype),          # ks
-            pltpu.VMEM((T, _M, _N, sub, _LANES), dtype),      # Ks
-            pltpu.VMEM((n_ls * _N, sub, _LANES), dtype),
-        ],
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=num_warps or max(1, blk // 32), num_stages=1),
         interpret=interpret,
-    )(rsh(zT), rsh(cT), rsh(params_pack), rsh(lb), rsh(ub), rsh(u0),
-      *setp_inputs, *resume_inputs, *blob_inputs)
-    ss, us, cost, conv, iters, gnorm, mu, done = [
-        a.reshape(a.shape[:-3] + (B,)) for a in out]
-    return (ss, us, cost[0], conv[0], iters[0], gnorm[0], mu[0], done[0])
+        name="nmpc_whole_solve",
+    )(*[prep(a) for a in inputs])
+    ss, us, stats = ss[..., :B], us[..., :B], stats[..., :B]
+    return (ss, us, stats[STAT_COST], stats[STAT_CONV], stats[STAT_ITERS],
+            stats[STAT_GNORM], stats[STAT_MU], stats[STAT_DONE])
 
 
 def solve_pallas_scheduled(zT, cT, params_pack, lb, ub, u0, cfg, *,
                            dtype=jnp.float32, interpret: bool = False,
                            blobs=None, refs=None):
-    """Megakernel solve under the SolverConfig iteration schedule.
+    """Whole-solve kernel under the SolverConfig iteration schedule.
 
-    The kernel's per-tile adaptive while loop pays the MAX iteration count
-    over each (sub x 128)-scenario tile; measured on random N=30 ensembles
-    the per-tile max is ~11.8 while the per-scenario mean is 5.0 — one slow
-    lane stalls 1023 finished ones. The sorted two-pass schedule closes
-    most of that gap (the oracle sort reaches 5.0):
+    The kernel's per-block adaptive while loop pays the MAX iteration
+    count over each block of lanes. Schedules:
 
-      pass 1: `presolve_iters` iterations for every lane;
-      sort:   lanes that are done first, the rest by projected-gradient
-              norm ascending (cheap difficulty key for the iterations
-              still needed);
-      pass 2: warm-restarted continuation on the PERMUTED batch — tiles
-              made entirely of done lanes exit before their first
-              iteration, and the slow tail clusters into few tiles;
-      unsort: scatter every output back to the caller's lane order.
+      "single": one pass.
+      "sorted": pass 1 runs `presolve_iters` iterations for every lane;
+              lanes are then sorted (done first, the rest by projected-
+              gradient norm ascending) and pass 2 continues warm-started
+              on the PERMUTED batch — blocks made entirely of done lanes
+              exit before their first iteration — and the outputs are
+              scattered back to the caller's lane order.
+      "compact": see `_solve_compact`.
+      "auto": "compact" above n_steps 36, else "single".
 
-    The two passes run the identical kernel; the only semantic difference
+    The passes run the identical kernel; the only semantic difference
     from one long pass is that the line-search/trust-region state (mu,
     small-step counter) restarts at the boundary for lanes still active —
     convergence criteria and solution quality are unchanged (asserted in
     tests against the single-pass and XLA paths).
-
-    MEASURED RESULT (v5e, steady-state, B=131072): the sort LOSES ~2x
-    (33 ms single-pass vs 61-68 ms sorted; obstacles@20 iters: 57 vs 91
-    ms). Batch-last layout puts the batch on the minor axis, so the
-    permutation gathers cross lanes for every operand, and pass 2 re-pays
-    the rollout + writeback. "sorted" is therefore opt-in only; "auto"
-    resolves to the single pass.
     """
     total = cfg.max_sqp_iters
-    schedule = cfg.schedule
-    if schedule == "auto" and cfg.n_steps > 36:
-        # measured on v5e (tools/probe_n40_compact.py, B=131072, caps
-        # 0.45*N, the round-5 long-horizon pair active): compact wins
-        # N=40 (5.86M solves/s @ conv 1.0000 vs single 5.45M @ 0.9999),
-        # N=44 (5.22M @ 1.0000 vs 4.30M @ 0.9997), and every longer
-        # horizon (N=48/60/100 with the two-policy rescue: 4.59M/3.24M/
-        # 722k at 8/0/61 ppm unconverged — see BENCH_NOTES); single
-        # wins N=36 (7.21M @ 1.0000 vs compact 6.39M @ 1.0000) because
-        # the pair collapsed the N<=36 tail that compaction existed to
-        # serve — so the auto crossover sits in (36, 40], measured at
-        # both ends. (History: round 4 set the threshold at >32 from
-        # N=48/60/100 wins; the round-5 pair moved it.) The genuinely
-        # slow long-horizon tail (censused in tools/census_horizon.py)
-        # is exactly the shape compaction serves: pass-1 tiles exit at
-        # their p97 lane (throughput) and the stragglers get a fresh
-        # budget — with the pair, a policy-switched one (see
-        # _solve_compact). Short horizons keep the single pass (DDP
-        # collapsed their tail; compact measured ~2.5% slower there,
-        # BENCH_NOTES "Tried and rejected" #0).
-        schedule = "compact"
+    schedule = resolve_schedule(cfg)
     if schedule == "compact":
         return _solve_compact(zT, cT, params_pack, lb, ub, u0, cfg,
                               dtype=dtype, interpret=interpret, blobs=blobs,
@@ -989,7 +909,7 @@ def solve_pallas_scheduled(zT, cT, params_pack, lb, ub, u0, cfg, *,
     k1 = cfg.presolve_iters
     # a second pass needs at least one iteration of budget left after the
     # presolve
-    two_pass = cfg.schedule == "sorted" and 1 <= k1 < total
+    two_pass = schedule == "sorted" and 1 <= k1 < total
     if not two_pass:
         return solve_pallas(zT, cT, params_pack, lb, ub, u0, cfg,
                             dtype=dtype, interpret=interpret, blobs=blobs,
@@ -1017,41 +937,27 @@ def solve_pallas_scheduled(zT, cT, params_pack, lb, ub, u0, cfg, *,
 
 def _solve_compact(zT, cT, params_pack, lb, ub, u0, cfg, *, dtype,
                    interpret, blobs, refs=None):
-    """Compact straggler schedule (VERDICT r1 item 3: close the tile-max
-    iteration waste WITHOUT the sorted schedule's full-batch gathers).
+    """Compact straggler schedule: close the block-max iteration waste
+    without the sorted schedule's full-batch gathers.
 
-    The kernel's per-tile adaptive loop pays the MAX iteration count over
-    each (sub x 128)-lane tile: at B=131072 the per-lane mean is ~5 but
-    every tile contains a tail lane, so every tile runs ~12 iterations —
-    the single largest inefficiency in the megakernel's executed-work
-    accounting. The sorted two-pass schedule attacked this and LOST 2x to
-    full-batch cross-lane permutation gathers. This schedule moves ONLY
-    the stragglers:
-
-      pass 1: whole batch, per-tile early exit once `compact_frac` of the
-              tile's lanes are done (tiles stop at ~the p97 lane, not the
-              max);
-      gather: the not-done lanes (argsort of the done flag — stable, so
-              at most ~(1-compact_frac) of each tile), padded with done
-              lanes to a static `compact_tail * B` tile-granular batch;
-      pass 2: resume-solve the tiny compact batch to completion (fresh
+      pass 1: whole batch, per-block early exit once `compact_frac` of the
+              block's lanes are done (blocks stop at ~the p97 lane, not
+              the max);
+      gather: the not-done lanes (argsort of the done flag — stable),
+              padded with done lanes to a static `compact_tail * B`
+              block-granular batch;
+      pass 2: resume-solve the small compact batch to completion (fresh
               iteration budget — these are exactly the lanes that need
               it); done pad lanes exit before their first iteration;
       scatter: results back into the pass-1 outputs.
 
     Only ~compact_tail of the lanes pay gather/scatter traffic. Stragglers
-    beyond the tail budget (possible when a tile hits max_iters with more
-    than compact_tail not done) keep their pass-1 iterate and report
+    beyond the tail budget keep their pass-1 iterate and report
     unconverged — conv accounting stays honest. Line-search/trust-region
     state (mu, small-step counter) restarts at the boundary exactly like
     the sorted schedule (tested equivalence)."""
     B = zT.shape[-1]
-    T = cfg.n_controls
-    sub = _pick_sub(B, T, cfg.ls_for(dtype),
-                    extra=0 if refs is None else (T + 1) * 3)
-    tile = sub * _LANES
-    n_tail = int(-(-B * cfg.compact_tail // tile)) * tile
-    n_tail = max(tile, min(n_tail, B))
+    n_tail = straggler_lanes(B, cfg)
     if n_tail >= B:
         # batch too small for a compaction win — single pass
         return solve_pallas(zT, cT, params_pack, lb, ub, u0, cfg,
@@ -1075,19 +981,16 @@ def _solve_compact(zT, cT, params_pack, lb, ub, u0, cfg, *, dtype,
     refs2 = None if refs is None else tk(refs)
     cfg2 = dataclasses.replace(cfg, done_frac=1.0)
     if pair:
-        # two-policy compaction (round 5): pass 1 runs the fast coupled
-        # (gate 1.5, mu floor 1e-2) policy for the 99.9%; the straggler
-        # pass keeps the SAME mu floor (the resume carries pass-1 mu —
-        # a lower pass-2 floor makes carried floor-level mu read as
-        # "inflated" and mislabels near-converged lanes stalled,
-        # measured 7,000+ ppm) but reverts the GATE to the conservative
-        # 0.75 — the genuinely-hard tail is the class the early gate
-        # trades away, and it is ~compact_tail of the batch, so the
-        # conservative rescue costs tail-sized work only. The rescue
+        # two-policy compaction: pass 1 runs the fast coupled (gate 1.5,
+        # mu floor 1e-2) policy for the bulk; the straggler pass keeps the
+        # SAME mu floor (the resume carries pass-1 mu — a lower pass-2
+        # floor makes carried floor-level mu read as "inflated" and
+        # mislabels near-converged lanes stalled) but reverts the GATE to
+        # the conservative 0.75 — the genuinely-hard tail is the class the
+        # early gate trades away, and it is ~compact_tail of the batch, so
+        # the conservative rescue costs tail-sized work only. The rescue
         # budget doubles (stragglers get 3x cap total vs the plain
-        # compact's 2x): the pair routes a few more borderline lanes
-        # into the tail, and at <=6% of the batch the extra iterations
-        # are noise against the +23-37% pass-1 saving.
+        # compact's 2x).
         cfg2 = dataclasses.replace(cfg2, ddp_gate=0.75, mu_init=1e-2,
                                    max_sqp_iters=2 * cfg.max_sqp_iters)
     d1s, c1s, m1s, g1s = tk(done1), tk(conv1), tk(mu1), tk(gn1)
@@ -1122,19 +1025,3 @@ def _solve_compact(zT, cT, params_pack, lb, ub, u0, cfg, *, dtype,
     return (scat(ss1, ss2), scat(us1, us2), scat(cost1, cost2),
             scat(conv1, conv2), it1.at[sel].add(it2), scat(gn1, gn2),
             scat(mu1, mu2), scat(done1, done2))
-
-
-def _pick_sub(B: int, T: int, ls_iters: int, extra: int = 0) -> int:
-    """Largest sublane tiling (scenarios per program = sub * 128) that
-    divides the batch and keeps the per-program VMEM scratch under budget.
-    sub=8 fills f32 vregs exactly; smaller subs only when forced.
-    `extra` = additional per-lane floats (e.g. the (T+1, 3) setpoint
-    profiles in trajectory-tracking mode)."""
-    per_lane_floats = (2 * (T + 1) * 6 + 2 * T * _M + T * 4 + T * _M
-                       + T * _M * _N + ls_iters * _N + extra)
-    for sub in (8, 4, 2, 1):
-        if B % (sub * _LANES):
-            continue
-        if per_lane_floats * _LANES * sub * 4 <= 10 * 2**20:
-            return sub
-    return 1

@@ -92,7 +92,7 @@ def weight_scale(p: MPCParams, dtype):
     iterates are bit-identical up to degenerate box-QP active-set ties).
     One-sided: down-scaled weights keep the
     absolute mu floor that measurably rescues their early-engaged DDP
-    model (SolverConfig.scale_adaptive docstring; BENCH_NOTES census)."""
+    model (SolverConfig.scale_adaptive docstring; PERF.md census)."""
     s = (p.w_cte + p.w_etheta + p.w_vel + p.w_angvel + p.w_accel
          + p.w_angvel_d + p.w_accel_d) * (1.0 / W_DEFAULT_SUM)
     return jnp.maximum(jnp.asarray(s, dtype), jnp.asarray(1.0, dtype))

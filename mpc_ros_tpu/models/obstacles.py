@@ -9,7 +9,7 @@ solver feature here.
 
 Design: a robot-frame occupancy-cost grid (the local costmap snapshot),
 bilinearly sampled along the predicted (x, y) horizon. Bilinear sampling is
-gather + FMA — cheap on TPU, batchable over scenarios with per-scenario
+gather + FMA — cheap, batchable over scenarios with per-scenario
 grids, and differentiable (piecewise-linear; the solver consumes the
 analytic gradient, Gauss-Newton curvature handled by the Levenberg
 regularizer).
@@ -20,12 +20,13 @@ from __future__ import annotations
 from typing import Any
 
 import jax.numpy as jnp
-from flax import struct
+
+from .. import pytree
 
 Array = Any
 
 
-@struct.dataclass
+@pytree.dataclass
 class ObstacleMap:
     """Robot/world-frame cost grid. grid[iy, ix] in [0, 1]; world coords:
     x = origin[0] + ix * resolution, y = origin[1] + iy * resolution.
@@ -45,9 +46,8 @@ class ObstacleMap:
         equivalent to one extra inflation-smoothing pass on the costmap.
       "spline_coeff" — the SAME spline surface evaluated from per-cell
         bi-quadratic coefficient planes (one packed row gather + Horner
-        instead of the 9-tap scattered stencil; measured +60% over the
-        stencil and faster than bilinear on v5e — the recommended grid
-        mode since round 5). Planes are derived inline per call if not
+        instead of the 9-tap scattered stencil — the recommended grid
+        mode). Planes are derived inline per call if not
         attached; `with_spline_coeffs()` precomputes them once per
         costmap update (use `with_grid` for updates — see its docstring).
     """
@@ -56,7 +56,7 @@ class ObstacleMap:
     origin: Array        # (2,) lower-left corner (x, y)
     resolution: Array    # scalar [m / cell]
     weight: Array        # cost multiplier w_obs
-    sampling: str = struct.field(pytree_node=False, default="bilinear")
+    sampling: str = pytree.field(pytree_node=False, default="bilinear")
     # optional precomputed per-cell bi-quadratic coefficient planes for
     # sampling="spline" ((H, W, 9) or (B, H, W, 9) — see
     # spline_coeff_planes / with_spline_coeffs): sampling becomes one
@@ -273,7 +273,7 @@ def spline_coeff_planes(grid: jnp.ndarray) -> jnp.ndarray:
     sx/sy the fractional offsets from the (clamped) center knot. Computed
     ONCE per costmap update (set_costmap time); per-sample evaluation is
     then one packed row gather + Horner instead of the 9-tap scattered
-    stencil (tools/probe_spline_coeff.py measures the trade on TPU).
+    stencil.
     Border rows/cols (cell index 0 and n-1) are edge-padded copies — the
     center knot clamps to [1, n-2], so they are never addressed."""
     g = grid
@@ -495,7 +495,7 @@ def obstacle_curv_bl(omaps: "ObstacleMap", x: jnp.ndarray, y: jnp.ndarray):
     return hxx, hyy
 
 
-@struct.dataclass
+@pytree.dataclass
 class GaussianObstacles:
     """Parametric obstacle field: K Gaussian blobs per scenario.
 
@@ -503,10 +503,10 @@ class GaussianObstacles:
     gamma = 1 / (2 sigma^2). All leaves are batch-major (B, K) (or (K,) for
     a single scenario).
 
-    This is the TPU-fast obstacle representation: smooth (C-inf) with an
+    This is the fast obstacle representation: smooth (C-inf) with an
     analytic gradient AND a PSD Gauss-Newton curvature term, and pure
-    elementwise VPU math — no grid gathers — so it runs inside the
-    whole-solve Pallas megakernel at full speed. Grid costmaps
+    elementwise math — no grid gathers — so it runs inside the
+    whole-solve kernel. Grid costmaps
     (`ObstacleMap`) remain supported on the XLA paths for exact costmap_2d
     parity; `fit_gaussians_to_map` converts a grid into blobs for the fast
     path.
@@ -623,8 +623,8 @@ def fit_gaussians_to_map(omap: ObstacleMap, n_blobs: int = 4,
     mean error to <= ~2% (bound pinned by tests/test_obstacle_fit.py).
 
     Host-side prep (numpy/scipy) at map-update rate, not per cycle; the
-    result feeds the megakernel fast path (~1500x faster than the grid
-    bilinear-gather path, see BENCH_NOTES.md). Peaks below `min_peak`
+    result feeds the parametric fast path (inside the whole-solve kernel;
+    grids run the slower gather-based XLA path). Peaks below `min_peak`
     produce zero-weight blobs (padding).
     """
     import numpy as np
@@ -735,7 +735,7 @@ def fit_gaussians_to_maps(omaps: ObstacleMap, n_blobs: int = 4,
     log-curvature at the peak -> subtract the blob -> clamp at 0],
     expressed as a `lax.scan` under `vmap`. All math is elementwise over
     the (B, H, W) grid plus (B,)-sized row gathers for the peak and its 4
-    neighbors (the TPU-safe gather shape — see CLAUDE.md); equality with
+    neighbors (small row gathers only); equality with
     the host fit is pinned in tests/test_obstacle_fit.py.
 
     The scipy `refine` stage stays host-side at map-update rate: it is a

@@ -1,13 +1,13 @@
 """Polynomial fitting/evaluation ops.
 
-TPU-native replacement for the reference's Eigen householder-QR `polyfit` and
+JAX replacement for the reference's Eigen householder-QR `polyfit` and
 Horner-free `polyeval` (/root/reference/mpc_ros/src/driving_state.cpp:273-300).
 Coefficients are stored in ASCENDING order (c0 + c1 x + c2 x^2 + ...), matching
 the reference layout so fitted coefficients are interchangeable.
 
 All functions are jit/vmap-friendly: static shapes, no data-dependent control
 flow. Batched fitting of thousands of reference paths maps onto batched
-matmuls (MXU) via the normal-equations/QR path inside `jnp.linalg.lstsq`.
+matmuls via the normal-equations/QR path inside `jnp.linalg.lstsq`.
 """
 
 from __future__ import annotations
@@ -55,11 +55,11 @@ def polyfit(x: jnp.ndarray, y: jnp.ndarray, order: int,
     (/root/reference/mpc_ros/src/driving_state.cpp:283-300). Uses the
     normal equations with a Cholesky-style solve: for the small systems here
     ((order+1) <= 6) this is numerically fine in f32 for well-scaled robot
-    -frame coordinates and compiles to batched matmuls on the MXU.
+    -frame coordinates and compiles to batched matmuls.
 
     `weights` (optional, (..., n)) enables masked fits over padded waypoint
     buffers: pass 0 for padding rows, 1 for valid rows. This is how dynamic
-    -length reference plans become static-shape TPU programs.
+    -length reference plans become static-shape device programs.
     """
     A = vandermonde(x, order)                      # (..., n, P)
     if weights is not None:

@@ -1,15 +1,16 @@
 """Device-mesh helpers.
 
-The reference has no parallelism at all (SURVEY.md §2.4); scale axes here are
-defined TPU-first:
+The reference has no parallelism at all (SURVEY.md §2.4); the mesh follows
+the algorithm (every device reaches every other at the same rate):
 
-* `data` — scenario-batch sharding over ICI (`shard_map` + `psum` for sweep
+* `data` — scenario-batch sharding (`shard_map` + `psum` for sweep
   reductions),
 * `time` — horizon parallelism for the Riccati factorization (distributed
   associative scan), reserved in the 2-D mesh layout.
 
-`psum`/`all_gather` ride ICI inside one slice; multi-host Monte-Carlo sweeps
-span hosts over DCN with the same program (jax global devices).
+`psum`/`all_gather` run across the devices of one host (NVLink between
+GPUs); multi-host Monte-Carlo sweeps span hosts over the network with the
+same program (jax global devices).
 """
 
 from __future__ import annotations

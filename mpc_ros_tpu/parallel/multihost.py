@@ -1,18 +1,18 @@
-"""Multi-host (DCN) launch scaffolding and scaling-efficiency measurement.
+"""Multi-host launch scaffolding and scaling-efficiency measurement.
 
 The reference is strictly single-process (SURVEY.md §2.4). The north-star
-configs require a >=2-host Monte-Carlo sweep over DCN with scaling
-efficiency measured at 1 chip / 1 host / N hosts (BASELINE.md).
+configs require a >=2-host Monte-Carlo sweep with scaling efficiency
+measured at 1 device / 1 host / N hosts (BASELINE.md).
 
 Design: one SPMD program over the global mesh. Each host builds its local
 scenario shard (`host_local_scenarios`) and assembles a global array; the
-sweep itself is the same `sharded_sweep` program — `psum` reductions ride
-ICI within a slice and DCN across hosts, and the per-cycle control path
-never participates (SURVEY.md §5.8 constraint).
+sweep itself is the same `sharded_sweep` program — `psum` reductions run
+across the devices of a host and over the network across hosts, and the
+per-cycle control path never participates (SURVEY.md §5.8 constraint).
 
-On this single-chip environment the same code runs on the virtual CPU mesh
-(tests) and on one real chip; `init_multihost` is the only piece that needs
-real multi-process infrastructure.
+The same code runs on the virtual CPU mesh (tests) and on one device;
+`init_multihost` is the only piece that needs real multi-process
+infrastructure.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Design constraint carried over from the reference (SURVEY.md §5.8): the
 per-cycle control path never blocks on cross-device communication — only the
 batched sweep path does collectives, and those are pure reductions (`psum`)
-over ICI after embarrassingly-parallel per-scenario solves.
+across devices after embarrassingly-parallel per-scenario solves.
 """
 
 from __future__ import annotations
@@ -13,9 +13,9 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+from .. import pytree
 from ..config import MPCParams, SolverConfig
 from ..solver import ilqr
 from ..solver.types import SolveResult
@@ -24,7 +24,7 @@ from .mesh import DATA_AXIS, TIME_AXIS
 Array = Any
 
 
-@struct.dataclass
+@pytree.dataclass
 class SweepStats:
     """Globally-reduced sweep statistics (one value per sweep, all devices)."""
 
@@ -55,8 +55,7 @@ def _local_solve_and_stats(z0s, coeffs, p, cfg):
 @functools.lru_cache(maxsize=None)
 def _time_sharded_riccati_jit(mesh):
     """One compiled executable per mesh — constructing jit wrappers inside
-    the call body would re-trace and re-compile on EVERY invocation (remote
-    TPU compiles run 3-370 s; see CLAUDE.md)."""
+    the call body would re-trace and re-compile on EVERY invocation."""
     from ..solver.riccati import parallel_gains
     from .mesh import DATA_AXIS, TIME_AXIS
 
@@ -74,7 +73,7 @@ def time_sharded_riccati(mesh, A, B, l_s, l_u, l_ss, l_uu, l_us, V_s, V_ss):
 
     The associative scan (solver/riccati.py) runs over the time-sharded
     axis; XLA GSPMD inserts the inter-device collectives (the block-scan
-    prefix exchange) along ICI. Inputs: A,B,l_* have shape (batch, T, ...);
+    prefix exchange) across devices. Inputs: A,B,l_* have shape (batch, T, ...);
     V_s, V_ss are per-batch terminal expansions (batch, ...).
     """
     return _time_sharded_riccati_jit(mesh)(
@@ -110,7 +109,7 @@ def sharded_sweep(mesh, z0s: jnp.ndarray, coeffs: jnp.ndarray,
     """Solve a scenario batch sharded over the mesh's data axis.
 
     Per-scenario results stay sharded (no gather of the big arrays);
-    statistics are psum-reduced over ICI and come back replicated.
+    statistics are psum-reduced across devices and come back replicated.
     """
     return _sweep_jit(mesh, cfg)(z0s, coeffs, p)
 
@@ -165,12 +164,13 @@ def sharded_batch_solve(mesh, z0s: jnp.ndarray, coeffs: jnp.ndarray,
                         p: MPCParams, cfg: SolverConfig, u_init=None,
                         blobs=None) -> SolveResult:
     """`batch_solve_lane` sharded over the mesh's data axis: each device
-    solves B/D robots with the lane-major solver (the megakernel on TPU).
+    solves B/D robots with the lane-major solver (the whole-solve kernel
+    on a GPU).
     Per-robot results stay sharded on their devices until fetched.
 
     MPCParams leaves shaped (B,) shard with the batch (per-robot wheelbase
     / weight sweeps); scalars replicate. Requires B divisible by the data
-    axis (and, for the TPU megakernel, B/D divisible by 128)."""
+    axis."""
     import dataclasses as _dc
 
     import numpy as _np
@@ -204,7 +204,7 @@ def _horizon_solve_jit(mesh, cfg: SolverConfig):
     control-limited horizon-parallel backward pass
     (solver/riccati.parallel_gains_boxed) run over stage arrays sharded
     along the horizon; XLA GSPMD inserts the block-scan collectives of the
-    distributed associative scan over ICI. The forward rollout / line
+    distributed associative scan across devices. The forward rollout / line
     search is sequential in T by NATURE (loop-carried plant state), so
     gains are constrained back to data-only sharding for that phase — the
     honest split: the time axis parallelizes exactly the O(T) passes that

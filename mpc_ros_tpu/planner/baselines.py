@@ -15,7 +15,7 @@ Both baselines override only `_make_tracker` / `_tracking_command`; every
 other behavior (states, tolerances, deceleration near the goal) is shared,
 so differences in the logs measure the control law, not the harness.
 
-The DWA scorer is TPU-idiomatic: the whole velocity window rolls out as one
+The DWA scorer is batch-idiomatic: the whole velocity window rolls out as one
 batched closed-form arc evaluation inside a single jitted program (no
 per-candidate loop), with optional obstacle clearance from either obstacle
 representation (grid costmap or parametric Gaussians).

@@ -43,7 +43,7 @@ class CycleInfo:
 
 
 class MPCPlanner:
-    """TPU-native local planner with the reference's lifecycle semantics."""
+    """Local planner with the reference's lifecycle semantics."""
 
     def __init__(self, params: MPCParams = MPCParams(),
                  solver_cfg: SolverConfig = SolverConfig(),

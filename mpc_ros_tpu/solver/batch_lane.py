@@ -1,25 +1,23 @@
-"""Lane-major batched solver — the TPU throughput path.
+"""Lane-major batched solver — the throughput path.
 
 The per-scenario solver (ilqr.py) keeps tensors scenario-major: a vmapped
-batch stores stage matrices as (B, T, 8, 8). On TPU the LAST dimension maps
-to the 128 vector lanes, so every tiny (8, 8) matrix pads its lane dim
-8 -> 128: 16x wasted HBM traffic and VPU occupancy, measured ~100x off
-speed-of-light per SQP stage at B=4096.
+batch stores stage matrices as (B, T, 8, 8), so every tiny (8, 8) matrix
+sits in the minor dimensions and every batched operation works on 8-wide
+rows.
 
 This module re-implements the IDENTICAL algorithm with the batch as the
 minor-most axis — A is (T, 8, 8, B) — so every operation is a dense
-lane-parallel vector op / batched small matmul that XLA maps straight onto
-the VPU/MXU. Measured on v5e: the backward Riccati scan drops from 46 ms to
-~0.1 ms at B=4096, T=29.
+lane-parallel elementwise op or a batched small contraction over the
+batch.
 
 Same math as ilqr.solve (tested for agreement): control-limited Riccati with
 exact per-stage 2-dim box QPs, parallel-in-alpha line search, per-lane
-Levenberg regularization and convergence masks. On TPU (f32, B % 128 == 0)
-the backward pass and line search run as fused Pallas kernels
-(kernels/backward_fused_pallas.py, kernels/forward_pallas.py); costmap
-obstacle solves (omaps=...) use the XLA lane paths. Per-scenario MPCParams
-leaves of shape (B,) ride the lanes, including through the kernels'
-packed-parameter tile — Monte-Carlo weight sweeps need no recompilation.
+Levenberg regularization and convergence masks. On a GPU (float32, no grid
+costmaps) the whole solve runs as one kernel (kernels/solve_pallas.py);
+`_use_kernel` is the one place that choice is made. Costmap obstacle
+solves (omaps=...) use the XLA lane paths. Per-scenario MPCParams leaves
+of shape (B,) ride the lanes, including through the kernel's
+packed-parameter rows — Monte-Carlo weight sweeps need no recompilation.
 """
 
 from __future__ import annotations
@@ -38,9 +36,7 @@ from .types import SolveResult
 _COMBOS = list(itertools.product(range(3), repeat=2))
 _NC = len(_COMBOS)
 
-# scan unroll factor (1 = plain scan). unroll=4 was measured slightly
-# SLOWER on v5e at T=29/B=4096 (223 vs 199 ms) with much longer compiles;
-# kept as a knob for other shapes.
+# scan unroll factor (1 = plain scan)
 _UNROLL = 1
 
 
@@ -53,7 +49,7 @@ def _pl(p: MPCParams, name, dtype):
 
 # Horner evaluation + derivative, batch-last: coeffs (P, B), x (..., B)
 # -> (..., B), any polynomial order. One implementation shared with the
-# Pallas kernels (the former duplicate here let a cubic-only regression
+# whole-solve kernel (a duplicate here once let a cubic-only regression
 # hide on one path).
 from ..kernels.backward_pallas import (_polyval_tile as _polyval_bl,
                                        _polyder_tile as _polyder_bl)
@@ -307,10 +303,7 @@ def _backward_bl(ss, us, coeffs, dt, sign, p, V_s, V_ss, lb, ub, mu,
 
     Stage Jacobians/quadratics are materialized for all T stages up front
     (one vmapped elementwise pass — fully parallel) and the scan reads them
-    as xs. An inline-per-step variant was measured SLOWER on v5e (485 vs
-    199 ms at B=4096): recomputing the 64-row stacked Jacobian inside every
-    step defeats XLA's batched-matmul lowering, while the materialized
-    arrays stream from HBM at line rate."""
+    as xs."""
     dtype = ss.dtype
     T = us.shape[0]
     i_scl = (jnp.asarray(1.0, dtype) if inv_scale is None
@@ -459,6 +452,33 @@ def _forward_multi_alpha_bl(ss_bar, us_bar, ks, Ks, alphas, coeffs, dt, sign,
 # ------------------------------------------------------------------ solve
 
 
+def _use_kernel(cfg: SolverConfig, dtype, has_omaps: bool) -> bool:
+    """The lane solver's engine choice, made here and nowhere else.
+
+    "auto" runs the whole-solve kernel when the default backend is a GPU
+    and the problem is one the kernel carries (float32, no grid costmaps),
+    and the XLA lane path otherwise. "xla" always runs the XLA lane path.
+    "mega" demands the kernel and raises where it cannot run: on a CPU it
+    does not fall back to the Pallas interpreter (tests call
+    kernels.solve_pallas with interpret=True explicitly)."""
+    if cfg.backward == "xla":
+        return False
+    fits = dtype == jnp.float32 and not has_omaps
+    on_gpu = jax.default_backend() == "gpu"
+    if cfg.backward == "mega":
+        if not on_gpu:
+            raise ValueError(
+                "backward='mega' runs the whole-solve kernel, which is "
+                f"compiled for the GPU only (default backend: "
+                f"{jax.default_backend()!r}); use 'auto' or 'xla'")
+        if not fits:
+            raise ValueError(
+                "backward='mega' needs a float32 problem without grid "
+                "costmaps (omaps); use 'auto' or 'xla'")
+        return True
+    return fits and on_gpu
+
+
 @functools.partial(jax.jit, static_argnames=("cfg",))
 def batch_solve_lane(z0s: jnp.ndarray, coeffs: jnp.ndarray, p: MPCParams,
                      cfg: SolverConfig,
@@ -472,15 +492,15 @@ def batch_solve_lane(z0s: jnp.ndarray, coeffs: jnp.ndarray, p: MPCParams,
 
     `omaps`: optional batched ObstacleMap (leaves with leading B) adding
     per-scenario costmap grid penalties; grid solves use the XLA paths (the
-    fused Pallas kernels do not sample grids).
+    whole-solve kernel does not sample grids).
     `blobs`: optional batched GaussianObstacles (leaves (B, K)) — the
     parametric obstacle fast path: smooth analytic gradient + Gauss-Newton
-    curvature, runs inside the Pallas megakernel at full speed. Use
+    curvature, evaluated inside the whole-solve kernel. Use
     `models.obstacles.fit_gaussians_to_map` to convert grids.
 
     `refs`: optional (B, n_steps, 3) per-scenario time-indexed
     (ref_cte, ref_etheta, ref_vel) setpoint profiles (trajectory-tracking
-    mode; see solver.ilqr.solve). The megakernel evaluates them natively;
+    mode; see solver.ilqr.solve). The kernel evaluates them natively;
     the XLA lane stages do not carry per-stage setpoints, so non-kernel
     configurations delegate to engine.batch_solve (identical semantics,
     vmap path)."""
@@ -530,40 +550,20 @@ def batch_solve_lane(z0s: jnp.ndarray, coeffs: jnp.ndarray, p: MPCParams,
             tot = tot + jnp.sum(val, axis=0)
         return tot
 
-    # the megakernel is specialized per vehicle family (diff_drive and
-    # bicycle); other model families run the pure-XLA lane paths
-    kernels_ok = (omaps is None and B % 128 == 0 and dtype == jnp.float32
-                  and model in ("diff_drive", "bicycle"))
-    on_tpu = jax.default_backend() == "tpu"
-    # "auto" -> whole-solve megakernel on TPU; "mega" forces it;
-    # "pallas" = the two-kernel (backward+forward) design; "xla" = pure XLA
-    use_mega = kernels_ok and (
-        cfg.backward == "mega" or (cfg.backward == "auto" and on_tpu))
-    # the two-kernel design predates parametric obstacles and stays
-    # diff-drive-only; the megakernel and XLA paths carry blob terms and
-    # both kernel families
-    use_pallas = (not use_mega) and kernels_ok and bl is None \
-        and cfg.backward == "pallas" and model == "diff_drive"
-    if cfg.ddp != "auto" and bool(cfg.ddp) and use_pallas:
-        # ddp="auto" resolves to GN on this backward instead of raising
-        raise ValueError(
-            "SolverConfig.ddp is implemented on the megakernel and XLA "
-            "lane paths; the legacy two-kernel backward (backward='pallas')"
-            " does not carry the second-order terms")
+    use_mega = _use_kernel(cfg, dtype, omaps is not None)
     use_ddp = cfg.ddp_for(dtype)
     n_ls = cfg.ls_for(dtype)
 
     if refs is not None and not use_mega:
         # the XLA lane stages keep the scalar FG_eval setpoints; per-stage
         # profiles run on the registry vmap path off-kernel. Parametric
-        # blobs ride the vmap too ((B, K) leaves mapped per scenario —
-        # obstacle-aware trajectory tracking off-TPU); grid omaps have no
-        # per-scenario vmap form and still refuse
+        # blobs ride the vmap too ((B, K) leaves mapped per scenario);
+        # grid omaps have no per-scenario vmap form and refuse
         if omaps is not None:
             raise ValueError(
-                "batch_solve_lane(refs=...) with grid omaps requires the "
-                "megakernel path (TPU or cfg.backward='mega'); the vmap "
-                "fallback does not carry batched grid terms")
+                "batch_solve_lane(refs=...) with grid omaps is not "
+                "supported: neither the whole-solve kernel nor the vmap "
+                "fallback carries batched grid terms")
         import dataclasses as _dc
 
         u_bm = None if u_init is None else jnp.asarray(u_init, dtype)
@@ -591,9 +591,9 @@ def batch_solve_lane(z0s: jnp.ndarray, coeffs: jnp.ndarray, p: MPCParams,
         )(z0s, coeffs, p, u_bm, refs_bm, blobs)
 
     if use_mega:
-        # the megakernel does its own VMEM-resident rollout; return before
-        # tracing the XLA rollout below (it would be dead code)
-        from ..kernels.backward_fused_pallas import pack_params
+        # the kernel does its own rollout; return before tracing the XLA
+        # rollout below (it would be dead code)
+        from ..kernels.backward_pallas import pack_params
         from ..kernels.solve_pallas import solve_pallas_scheduled
 
         refsT = (None if refs is None
@@ -623,17 +623,11 @@ def batch_solve_lane(z0s: jnp.ndarray, coeffs: jnp.ndarray, p: MPCParams,
         max(cfg.tol_cost, 10.0 * float(jnp.finfo(dtype).eps)), dtype)
     # one-sided weight-scale equivariance (scalar or per-lane with
     # (B,)-shaped weight leaves) — shared resolution in
-    # models/costs.scaled_solver_knobs; see the ilqr.solve comment. The
-    # legacy two-kernel 'pallas' backward predates this and is skipped
-    # (its pg is computed in-kernel).
-    import dataclasses
-
+    # models/costs.scaled_solver_knobs; see the ilqr.solve comment
     from ..models.costs import scaled_solver_knobs
 
-    knob_cfg = (cfg if not use_pallas
-                else dataclasses.replace(cfg, scale_adaptive=False))
     mu_min, mu_max, inv_scl, cost_guard = scaled_solver_knobs(
-        knob_cfg, p, dtype, has_obstacles=bl is not None,
+        cfg, p, dtype, has_obstacles=bl is not None,
         has_omaps=omaps is not None)
     mu_factor = jnp.asarray(cfg.mu_factor, dtype)
     alphas = jnp.asarray(0.5, dtype) ** jnp.arange(n_ls, dtype=dtype)
@@ -676,52 +670,34 @@ def batch_solve_lane(z0s: jnp.ndarray, coeffs: jnp.ndarray, p: MPCParams,
             V_s = V_s.at[0].add(gxT).at[1].add(gyT)
             V_ss = (V_ss.at[0, 0].add(hxxT).at[0, 1].add(hxyT)
                     .at[1, 0].add(hxyT).at[1, 1].add(hyyT))
-        if use_pallas:
-            from ..kernels.backward_fused_pallas import (backward_fused_pallas,
-                                                         pack_params)
-
-            pp = pack_params(p, B, dtype)
-            ks, Ks, dV1, dV2, pg = backward_fused_pallas(
-                ss, us, cT, pp, sign, V_s, V_ss, lb, ub, mu)
-        else:
-            ks, Ks, dV1, dV2, pg = _backward_bl(
-                ss, us, cT, dt, sign, p, V_s, V_ss, lb, ub, mu, omaps, bl,
-                model, ddp=use_ddp, ddp_mask=dmask, inv_scale=inv_scl)
+        ks, Ks, dV1, dV2, pg = _backward_bl(
+            ss, us, cT, dt, sign, p, V_s, V_ss, lb, ub, mu, omaps, bl,
+            model, ddp=use_ddp, ddp_mask=dmask, inv_scale=inv_scl)
 
         pred_decrease = -(dV1 + dV2)
         tiny_model = pred_decrease <= tol_cost * (cost_guard + jnp.abs(cost))
 
         act = jnp.logical_not(done)                         # still-solving lanes
-        if use_pallas:
-            from ..kernels.forward_pallas import forward_pallas
-            from ..kernels.backward_fused_pallas import pack_params
-
-            pp = pack_params(p, B, dtype)
-            ss2, us2, cost2, acc_f = forward_pallas(
-                ss, us, ks, Ks, cT, pp, sign, lb, ub, cost,
-                act.astype(dtype), n_alpha=n_ls)
-            accepted = acc_f > 0.5
-        else:
-            ss_all, us_all, costs_all = _forward_multi_alpha_bl(
-                ss, us, ks, Ks, alphas, cT, dt, sign, lb, ub, p, dtype,
-                model)
-            if has_obs:
-                # ss_all (T+1, n_ls, 8, B): add per-candidate obstacle cost
-                costs_all = costs_all + jax.vmap(
-                    _obs_cost_knots, in_axes=1, out_axes=0)(ss_all)
-            improved = costs_all < cost[None]               # (n_ls, B)
-            accepted = jnp.any(improved, axis=0)            # (B,)
-            pick = jnp.argmin(jnp.where(
-                improved, jnp.arange(n_ls)[:, None],
-                n_ls + 1), axis=0)                          # (B,)
-            sel = jax.nn.one_hot(pick, n_ls, dtype=dtype, axis=0)
-            ss_n = jnp.einsum("ab,taib->tib", sel, ss_all)
-            us_n = jnp.einsum("ab,tamb->tmb", sel, us_all)
-            cost_n = jnp.einsum("ab,ab->b", sel, costs_all)
-            upd_x = jnp.logical_and(act, accepted)
-            ss2 = jnp.where(upd_x[None, None, :], ss_n, ss)
-            us2 = jnp.where(upd_x[None, None, :], us_n, us)
-            cost2 = jnp.where(upd_x, cost_n, cost)
+        ss_all, us_all, costs_all = _forward_multi_alpha_bl(
+            ss, us, ks, Ks, alphas, cT, dt, sign, lb, ub, p, dtype,
+            model)
+        if has_obs:
+            # ss_all (T+1, n_ls, 8, B): add per-candidate obstacle cost
+            costs_all = costs_all + jax.vmap(
+                _obs_cost_knots, in_axes=1, out_axes=0)(ss_all)
+        improved = costs_all < cost[None]               # (n_ls, B)
+        accepted = jnp.any(improved, axis=0)            # (B,)
+        pick = jnp.argmin(jnp.where(
+            improved, jnp.arange(n_ls)[:, None],
+            n_ls + 1), axis=0)                          # (B,)
+        sel = jax.nn.one_hot(pick, n_ls, dtype=dtype, axis=0)
+        ss_n = jnp.einsum("ab,taib->tib", sel, ss_all)
+        us_n = jnp.einsum("ab,tamb->tmb", sel, us_all)
+        cost_n = jnp.einsum("ab,ab->b", sel, costs_all)
+        upd_x = jnp.logical_and(act, accepted)
+        ss2 = jnp.where(upd_x[None, None, :], ss_n, ss)
+        us2 = jnp.where(upd_x[None, None, :], us_n, us)
+        cost2 = jnp.where(upd_x, cost_n, cost)
         upd = jnp.logical_and(act, accepted)
         mu2 = jnp.where(
             upd, jnp.maximum(mu / mu_factor, mu_min),

@@ -34,8 +34,8 @@ def inv2(M: jnp.ndarray) -> jnp.ndarray:
     """Closed-form inverse of (..., 2, 2) matrices (adjugate / det).
 
     XLA lowers `jnp.linalg.solve` on tiny systems to generic batched LU —
-    pathologically slow inside a TPU scan body. Every 2x2 solve in the hot
-    Riccati path goes through this instead (pure VPU arithmetic).
+    pathologically slow inside a scan body. Every 2x2 solve in the hot
+    Riccati path goes through this instead (pure elementwise arithmetic).
     """
     a = M[..., 0, 0]
     b = M[..., 0, 1]

@@ -8,14 +8,14 @@ backward pass (per-stage 2-dim box QP solved by active-set enumeration).
 Stationary points coincide with the full NLP's KKT points, which is what the
 oracle-matching tests assert.
 
-TPU-first design notes:
+Design notes:
 * one `lax.scan` per backward/forward pass (static shapes, compiles once),
 * analytic linearization + exact quadratic cost expansion (no per-iteration
   autodiff graphs) — batched (T, 8, 8) linear algebra that XLA fuses and that
-  later drops into a Pallas kernel,
+  the batched lane path mirrors in its whole-solve kernel,
 * fixed iteration caps with convergence masks (`lax.while_loop`) so the whole
   solve jits and `vmap`s over scenario batches,
-* dtype-polymorphic: f32 on TPU, f64 under the CPU oracle tests.
+* dtype-polymorphic: f32 on the accelerator, f64 under the CPU oracle tests.
 
 The reference cold-starts every cycle and re-tapes its AD graph per solve
 (quirk Q9); here the compiled program is reused and `u_init` enables
@@ -251,7 +251,7 @@ def forward_pass_multi_alpha(ss_bar, us_bar, ks, Ks, alphas, z0, coeffs,
     A sequential backtracking line search costs up-to-`ls_iters` rollout
     scans, and under `vmap` the whole batch pays the max trip count of any
     lane. Evaluating the K alphas simultaneously (carry (K, 8)) keeps one
-    scan per SQP iteration: K times the FLOPs — which the TPU has to spare —
+    scan per SQP iteration: K times the FLOPs — which the device has to spare —
     for 1/K-th the sequential steps.
 
     Returns ss (K, T+1, 8), us (K, T, 2), costs (K,).
@@ -321,8 +321,7 @@ def solve(z0: jnp.ndarray, coeffs: jnp.ndarray, p: MPCParams,
     else:
         us0 = jnp.clip(jnp.asarray(u_init, dtype), lb, ub)
     if cfg.ddp != "auto" and bool(cfg.ddp) and cfg.horizon_parallel:
-        # consistent with batch_solve_lane's backward='pallas' raise: the
-        # associative-scan elements need SPD stage quadratics up front, so
+        # the associative-scan elements need SPD stage quadratics up front, so
         # the gated DDP contraction is sequential-path only — silently
         # running GN would let users attribute GN behavior to ddp
         # (ddp="auto" resolves to GN here instead of raising)

@@ -5,7 +5,7 @@ reference (/root/reference/mpc_ros/src/mpc_planner.cpp:265-375):
 
 * decision vector [x(N), y(N), theta(N), v(N), cte(N), etheta(N),
   omega(N-1), a(N-1)],
-* objective fg[0] (via the same `total_cost` the TPU solver minimizes),
+* objective fg[0] (via the same `total_cost` the batched solver minimizes),
 * 6N constraints: per-block initial row g[block] = vars[block] pinned to the
   measured state, then N-1 dynamics defects per block,
 * box bounds: states +-bound_value, |omega| <= max_angvel,
@@ -14,8 +14,8 @@ reference (/root/reference/mpc_ros/src/mpc_planner.cpp:265-375):
   (/root/reference/mpc_ros/src/mpc_planner.cpp:288-300).
 
 Solved in float64 with scipy (SLSQP active-set SQP by default; trust-constr
-interior-point available — the closer analog of Ipopt). Ipopt itself does not
-exist in the TPU environment; this oracle substitutes for it in the
+interior-point available — the closer analog of Ipopt). Ipopt itself is not
+a dependency; this oracle substitutes for it in the
 regression-tolerance tests (SURVEY.md §7.2-2a). Runs on CPU, numpy only at
 the scipy boundary; gradients are exact via jax in float64.
 """
@@ -23,6 +23,7 @@ the scipy boundary; gradients are exact via jax in float64.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -40,10 +41,11 @@ class OracleResult:
     kkt_violation: float  # max |dynamics defect| at the solution
 
 
-def _build_funcs(coeffs: np.ndarray, p: MPCParams, N: int,
-                 cte_vsin_sign: float = 1.0, extra_cost=None,
-                 model: str = "diff_drive", refs=None):
-    """Objective/constraints on the flat reference-layout vector (jax f64)."""
+@functools.lru_cache(maxsize=32)
+def _nlp_funcs(N: int, cte_vsin_sign: float, extra_cost, model: str):
+    """Jitted objective/constraints (+ derivatives) of the flat
+    reference-layout vector, taking (v, coeffs, p, refs) so one
+    compilation serves every scenario of a shape."""
     import jax
     import jax.numpy as jnp
 
@@ -52,12 +54,6 @@ def _build_funcs(coeffs: np.ndarray, p: MPCParams, N: int,
 
     mdl = get_model(model)
 
-    assert jax.config.jax_enable_x64, "oracle requires float64 (enable x64)"
-    coeffs = jnp.asarray(coeffs, jnp.float64)
-    dt = jnp.asarray(p.dt, jnp.float64)
-    if refs is not None:
-        refs = jnp.asarray(refs, jnp.float64)
-
     def unpack(v):
         zs = jnp.stack([v[i * N:(i + 1) * N] for i in range(6)], axis=-1)
         us = jnp.stack(
@@ -65,28 +61,41 @@ def _build_funcs(coeffs: np.ndarray, p: MPCParams, N: int,
         )
         return zs, us
 
-    def objective(v):
+    def objective(v, coeffs, p, refs):
         zs, us = unpack(v)
         c = total_cost(zs, us, p, refs)
         if extra_cost is not None:
             c = c + extra_cost(zs, us)
         return c
 
-    def constraints(v):
+    def constraints(v, coeffs, p, refs):
         zs, us = unpack(v)
         # per-block initial rows followed by the N-1 defects of that block,
         # matching fg[1 + block_start + {0, 1+i}] in FG_eval
-        preds = jax.vmap(lambda z, u: mdl.step(z, u, coeffs, dt,
+        preds = jax.vmap(lambda z, u: mdl.step(z, u, coeffs, p.dt,
                                                cte_vsin_sign, p))(zs[:-1], us)
         defects = zs[1:] - preds                       # (N-1, 6)
         rows = [jnp.concatenate([zs[0, j:j + 1], defects[:, j]]) for j in range(6)]
         return jnp.concatenate(rows)
 
-    obj_jit = jax.jit(objective)
-    grad_jit = jax.jit(jax.grad(objective))
-    con_jit = jax.jit(constraints)
-    jac_jit = jax.jit(jax.jacfwd(constraints))
-    return obj_jit, grad_jit, con_jit, jac_jit
+    return (jax.jit(objective), jax.jit(jax.grad(objective)),
+            jax.jit(constraints), jax.jit(jax.jacfwd(constraints)))
+
+
+def _build_funcs(coeffs: np.ndarray, p: MPCParams, N: int,
+                 cte_vsin_sign: float = 1.0, extra_cost=None,
+                 model: str = "diff_drive", refs=None):
+    """Objective/constraints on the flat reference-layout vector (jax f64)."""
+    import jax
+    import jax.numpy as jnp
+
+    assert jax.config.jax_enable_x64, "oracle requires float64 (enable x64)"
+    coeffs = jnp.asarray(coeffs, jnp.float64)
+    p64 = p.astype(jnp.float64)
+    if refs is not None:
+        refs = jnp.asarray(refs, jnp.float64)
+    fns = _nlp_funcs(N, float(cte_vsin_sign), extra_cost, model)
+    return tuple((lambda v, f=f: f(v, coeffs, p64, refs)) for f in fns)
 
 
 def solve_oracle(z0: np.ndarray, coeffs: np.ndarray, p: MPCParams,

@@ -4,12 +4,12 @@ from __future__ import annotations
 
 from typing import Any
 
-from flax import struct
+from .. import pytree
 
 Array = Any
 
 
-@struct.dataclass
+@pytree.dataclass
 class SolveResult:
     """Result of one NMPC solve.
 

@@ -73,7 +73,7 @@ def test_sharded_sweep_deterministic():
 
 
 def test_lane_solver_matches_vmapped():
-    """The lane-major TPU path must agree with the per-scenario solver."""
+    """The lane-major batched path must agree with the per-scenario solver."""
     from mpc_ros_tpu.engine import batch_solve_lane
 
     key = jax.random.PRNGKey(5)
@@ -237,19 +237,17 @@ def test_sharded_receding_rollout_matches_unsharded():
 
 def test_sweep_ddp_ranks_correctly_and_beats_gn_iterations():
     """The tuning sweep's DDP correctness property (VERDICT r3 item 4,
-    BENCH_NOTES config #5): on the bench's fixed candidate draw, the DDP
+    PERF.md): on the bench's fixed candidate draw, the DDP
     sweep must (a) keep selecting the same best candidate it selects on
     hardware (index 5 — GN mis-ranks to 4 because its unconverged
     extreme-weight solves inflate their cte estimates), and (b) spend
     FEWER mean iterations than GN on EVERY candidate — the
-    machine-independent form of 'ddp within ~10% of the GN sweep time'
-    (on-chip round 4 both measured 0.075 s for 131k solves).
+    machine-independent form of 'ddp within ~10% of the GN sweep time'.
 
-    The round-3 'scale-invariant gate' hypothesis for the apparent 27%
-    ddp sweep regression was censused and REFUTED this round
-    (tools/probe_gate_scale*.py; BENCH_NOTES 'Tried and rejected' #7):
-    the regression was session variance, and every weight-scaled gate
-    variant measured worse or neutral. This test pins the properties the
+    The 'scale-invariant gate' hypothesis for an apparent ddp sweep
+    regression was censused and REFUTED (tools/probe_gate_scale*.py;
+    PERF.md 'Tried and rejected'): the regression was session variance,
+    and every weight-scaled gate variant measured worse or neutral. This test pins the properties the
     sweep actually needs."""
     import dataclasses
 

@@ -1,6 +1,6 @@
 """Hybrid GN->DDP backward pass (SolverConfig.ddp) — round-3 tail killer.
 
-The census (BENCH_NOTES round 3) showed the iteration-count tail is the
+The census (PERF.md) showed the iteration-count tail is the
 large-residual scenario class (high heading error at speed on curved
 references) where Gauss-Newton converges only linearly while accepting
 full steps. The exact second-order dynamics terms restore local quadratic
@@ -40,7 +40,8 @@ def test_ddp_auto_profile():
     assert cfg.ls_for(jnp.float32) == 4
     assert cfg.ls_for(jnp.float64) == 8
     assert SolverConfig(horizon_parallel=True).ddp_for(jnp.float32) is False
-    assert SolverConfig(backward="pallas").ddp_for(jnp.float32) is False
+    with pytest.raises(ValueError, match="backward"):
+        SolverConfig(backward="pallas")
     assert SolverConfig(ddp=True).ddp_for(jnp.float64) is True
     assert SolverConfig(ddp=False).ddp_for(jnp.float32) is False
     assert SolverConfig(ls_iters=6).ls_for(jnp.float32) == 6
@@ -95,7 +96,7 @@ def test_ddp_megakernel_matches_xla():
                   model=model, ddp=True)
         r_x = batch_solve_lane(z0s, coeffs, p,
                                SolverConfig(**kw, backward="xla"))
-        from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
+        from mpc_ros_tpu.kernels.backward_pallas import pack_params
         from mpc_ros_tpu.kernels.solve_pallas import solve_pallas
         from mpc_ros_tpu.models.base import get_model
 
@@ -226,7 +227,7 @@ def test_ddp_megakernel_matches_xla_with_blobs():
     """The gated exact blob curvature runs in both the megakernel
     (obs_terms gate) and the XLA lane path (blob_concave_bl) — identical
     iteration counts, controls to f32 noise."""
-    from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
+    from mpc_ros_tpu.kernels.backward_pallas import pack_params
     from mpc_ros_tpu.kernels.solve_pallas import solve_pallas
     from mpc_ros_tpu.models.base import get_model
     from mpc_ros_tpu.models.obstacles import GaussianObstacles
@@ -398,7 +399,7 @@ def test_weight_scale_equivariance_megakernel():
     """The megakernel computes the same per-lane scale from its params
     tile: interpret-mode kernel == XLA lane path on a MIXED-scale batch
     (half c=1, half c=5 lanes)."""
-    from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
+    from mpc_ros_tpu.kernels.backward_pallas import pack_params
     from mpc_ros_tpu.kernels.solve_pallas import solve_pallas
     from mpc_ros_tpu.models.base import get_model
 
@@ -459,13 +460,14 @@ def test_long_horizon_pair_policy():
     # blobs-only gate cap
     assert c.mu_init_for(jnp.float32, False, True) == 1e-6
     assert c.gate_for(False, jnp.float32, has_omaps=True) == 0.75
-    # backward modes that cannot run DDP keep the conservative floor
-    # even under an explicit ddp=True (which ddp_for honors verbatim)
+    # the backward mode that cannot run DDP keeps the conservative floor
+    # even under an explicit ddp=True (which ddp_for honors verbatim); the
+    # removed two-kernel backward is refused outright
     assert SolverConfig(n_steps=48, ddp=True,
                         horizon_parallel=True).mu_init_for(
         jnp.float32) == 1e-6
-    assert SolverConfig(n_steps=48, ddp=True,
-                        backward="pallas").mu_init_for(jnp.float32) == 1e-6
+    with pytest.raises(ValueError, match="backward"):
+        SolverConfig(n_steps=48, ddp=True, backward="pallas")
 
 
 def test_long_horizon_pair_beats_conservative():
@@ -490,25 +492,23 @@ def test_long_horizon_pair_beats_conservative():
 
 def test_truthy_nonbool_ddp_still_raises_on_unsupported_backwards():
     """A programmatic SolverConfig(ddp=1) must hit the same unsupported-
-    backward raises as ddp=True (an `is True` guard lets 1 slip through
+    backward raise as ddp=True (an `is True` guard lets 1 slip through
     and silently run GN — the exact silent fallback the raise documents
-    against). ddp='auto' keeps resolving to GN without raising."""
-    # B=128: the pallas backward only engages on 128-multiple f32 batches
+    against). ddp='auto' keeps resolving to GN without raising. The
+    removed two-kernel backward ('pallas') is refused at config time,
+    whatever the ddp setting."""
     z0s, coeffs = make_random_scenarios(jax.random.PRNGKey(0), 128)
     p = MPCParams().astype(jnp.float32)
-    import pytest
 
     with pytest.raises(ValueError, match="backward"):
-        batch_solve_lane(z0s, coeffs, p,
-                         SolverConfig(n_steps=10, ddp=1,
-                                      backward="pallas"))
+        SolverConfig(n_steps=10, ddp=1, backward="pallas")
     from mpc_ros_tpu.solver import ilqr
 
     with pytest.raises(ValueError, match="horizon_parallel"):
         ilqr.solve(z0s[0], coeffs[0], p,
                    SolverConfig(n_steps=10, ddp=1, horizon_parallel=True))
-    # auto still quietly resolves to GN on both (no raise at config time;
-    # running the real two-kernel backward needs hardware, so resolution
-    # is checked on the config, not by executing)
-    assert SolverConfig(n_steps=10, backward="pallas").ddp_for(
+    # auto still quietly resolves to GN (no raise at config time)
+    assert SolverConfig(n_steps=10, horizon_parallel=True).ddp_for(
         jnp.float32) is False
+    with pytest.raises(ValueError, match="backward"):
+        SolverConfig(n_steps=10, backward="pallas")

@@ -2,7 +2,7 @@
 
 The reference's CppAD workflow is: write the dynamics on AD<double>, the
 vendored engine tapes + differentiates them (SURVEY.md §2.2). The
-TPU-native equivalent must offer the same capability — a user writes ONLY
+JAX equivalent must offer the same capability — a user writes ONLY
 a step function and gets a solver-ready model — not just hand-derived
 Jacobian families. These tests pin that path:
 

@@ -33,7 +33,7 @@ def test_measure_scaling_runs_and_reports():
         # efficiency is REPORTED, not asserted: on a virtual CPU mesh the
         # quantity measures host-core oversubscription plus whatever else
         # is running on the box (observed 0.22 idle, 3.86 under load —
-        # BENCH_NOTES "Tried and rejected" #4), so any bound here fails on
+        # PERF.md "Tried and rejected"), so any bound here fails on
         # machine load, not on code. Real efficiency needs a real slice.
         assert np.isfinite(r["efficiency"]) and r["efficiency"] > 0
 

@@ -230,7 +230,7 @@ def test_megakernel_blobs_interpret_matches_xla_lane():
     """Megakernel with blob terms (interpret mode) vs the XLA lane solver
     with the same blobs: same controls / flags / iteration counts."""
     from mpc_ros_tpu.engine import make_random_scenarios
-    from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
+    from mpc_ros_tpu.kernels.backward_pallas import pack_params
     from mpc_ros_tpu.kernels.solve_pallas import solve_pallas
     from mpc_ros_tpu.solver.batch_lane import batch_solve_lane
 

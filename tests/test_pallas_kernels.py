@@ -1,4 +1,5 @@
-"""Pallas kernel tests (interpret mode on CPU) vs the XLA lane solver."""
+"""Whole-solve kernel tests (Pallas interpret mode on the CPU) against the
+XLA lane solver, plus the wrapper's blocking, padding and lowering."""
 
 import jax
 import jax.numpy as jnp
@@ -7,121 +8,14 @@ import pytest
 
 from mpc_ros_tpu.config import MPCParams, SolverConfig
 from mpc_ros_tpu.solver import batch_lane as bl
-from mpc_ros_tpu.kernels.backward_fused_pallas import (backward_fused_pallas,
-                                                       pack_params)
-from mpc_ros_tpu.kernels.forward_pallas import forward_pallas
-
-
-@pytest.fixture
-def problem():
-    dtype = jnp.float32
-    B, T = 128, 7
-    key = jax.random.PRNGKey(0)
-    kk = jax.random.split(key, 6)
-    z0s = jax.random.normal(kk[0], (B, 6), dtype) * 0.3
-    coeffs = jax.random.normal(kk[1], (B, 4), dtype) * 0.1
-    us = jax.random.normal(kk[2], (T, 2, B), dtype) * 0.3
-    p = MPCParams().astype(dtype)
-    zT = jnp.swapaxes(z0s, 0, 1)
-    cT = jnp.swapaxes(coeffs, 0, 1)
-    s0 = jnp.concatenate([zT, jnp.zeros((2, B), dtype)], axis=0)
-    ss, cost0 = bl._rollout_and_cost(s0, us, cT, 0.1, 1.0, p, dtype, T)
-    V_s, V_ss = bl._terminal_bl(ss[-1], p, dtype)
-    lb = jnp.broadcast_to(jnp.asarray([-0.4, -0.5], dtype)[:, None], (2, B))
-    mu = jnp.full((B,), 1e-6, dtype)
-    return dict(B=B, T=T, dtype=dtype, p=p, cT=cT, ss=ss, us=us, V_s=V_s,
-                V_ss=V_ss, lb=lb, ub=-lb, mu=mu, cost0=cost0,
-                kk=kk)
-
-
-def test_backward_fused_matches_xla(problem):
-    pr = problem
-    r_ref = bl._backward_bl(pr["ss"], pr["us"], pr["cT"], 0.1, 1.0, pr["p"],
-                            pr["V_s"], pr["V_ss"], pr["lb"], pr["ub"],
-                            pr["mu"])
-    pp = pack_params(pr["p"], pr["B"], pr["dtype"])
-    r_pls = backward_fused_pallas(pr["ss"], pr["us"], pr["cT"], pp, 1.0,
-                                  pr["V_s"], pr["V_ss"], pr["lb"], pr["ub"],
-                                  pr["mu"], interpret=True)
-    np.testing.assert_allclose(np.asarray(r_pls[0]), np.asarray(r_ref[0]),
-                               atol=2e-6)   # ks
-    np.testing.assert_allclose(np.asarray(r_pls[1]), np.asarray(r_ref[1]),
-                               atol=2e-6)   # Ks
-    np.testing.assert_allclose(np.asarray(r_pls[4]), np.asarray(r_ref[4]),
-                               atol=1e-6)   # pg
-
-
-def test_forward_kernel_matches_xla_selection(problem):
-    pr = problem
-    dtype = pr["dtype"]
-    B, T = pr["B"], pr["T"]
-    NA = 8
-    ksg = jax.random.normal(pr["kk"][3], (T, 2, B), dtype) * 0.1
-    Ksg = jax.random.normal(pr["kk"][4], (T, 2, 8, B), dtype) * 0.05
-    act = (jax.random.uniform(pr["kk"][5], (B,)) > 0.3).astype(dtype)
-    alphas = jnp.asarray(0.5, dtype) ** jnp.arange(NA, dtype=dtype)
-
-    ss_all, us_all, costs_all = bl._forward_multi_alpha_bl(
-        pr["ss"], pr["us"], ksg, Ksg, alphas, pr["cT"], 0.1, 1.0,
-        pr["lb"], pr["ub"], pr["p"], dtype)
-    improved = costs_all < pr["cost0"][None]
-    accepted = jnp.any(improved, axis=0).astype(dtype)
-    pick = jnp.argmin(jnp.where(improved, jnp.arange(NA)[:, None], NA + 1),
-                      axis=0)
-    sel = jax.nn.one_hot(pick, NA, dtype=dtype, axis=0)
-    upd = accepted * act
-    ss2 = jnp.where(upd[None, None, :] > 0.5,
-                    jnp.einsum("ab,taib->tib", sel, ss_all), pr["ss"])
-    us2 = jnp.where(upd[None, None, :] > 0.5,
-                    jnp.einsum("ab,tamb->tmb", sel, us_all), pr["us"])
-
-    pp = pack_params(pr["p"], B, dtype)
-    ss_p, us_p, cost_p, acc_p = forward_pallas(
-        pr["ss"], pr["us"], ksg, Ksg, pr["cT"], pp, 1.0, pr["lb"], pr["ub"],
-        pr["cost0"], act, NA, interpret=True)
-    np.testing.assert_allclose(np.asarray(ss_p), np.asarray(ss2), atol=2e-6)
-    np.testing.assert_allclose(np.asarray(us_p), np.asarray(us2), atol=2e-6)
-    np.testing.assert_allclose(np.asarray(acc_p), np.asarray(accepted),
-                               atol=0)
-
-
-def test_full_solve_forced_pallas_interpret_matches_xla():
-    """End-to-end: batch_solve_lane with backward='pallas' in interpret
-    mode (monkeypatched) equals the XLA path."""
-    import mpc_ros_tpu.kernels.backward_fused_pallas as bfp
-    import mpc_ros_tpu.kernels.forward_pallas as fp
-    from mpc_ros_tpu.engine import make_random_scenarios
-
-    dtype = jnp.float32
-    z0s, coeffs = make_random_scenarios(jax.random.PRNGKey(9), 128, dtype)
-    p = MPCParams().astype(dtype)
-    cfg_x = SolverConfig(n_steps=12, max_sqp_iters=8, tol_grad=1e-3,
-                         backward="xla")
-    cfg_p = SolverConfig(n_steps=12, max_sqp_iters=8, tol_grad=1e-3,
-                         backward="pallas")
-    r_x = bl.batch_solve_lane(z0s, coeffs, p, cfg_x)
-
-    orig_b = bfp.backward_fused_pallas
-    orig_f = fp.forward_pallas
-    bfp.backward_fused_pallas = lambda *a, **kw: orig_b(
-        *a, **{**kw, "interpret": True})
-    fp.forward_pallas = lambda *a, **kw: orig_f(
-        *a, **{**kw, "interpret": True})
-    try:
-        r_p = bl.batch_solve_lane(z0s, coeffs, p, cfg_p)
-    finally:
-        bfp.backward_fused_pallas = orig_b
-        fp.forward_pallas = orig_f
-
-    du = float(jnp.max(jnp.abs(r_x.us - r_p.us)))
-    assert du < 5e-3, f"pallas-vs-xla full solve deviation {du}"
+from mpc_ros_tpu.kernels.backward_pallas import pack_params
 
 
 def test_megakernel_interpret_matches_lane_solver():
     """Whole-solve megakernel (interpret mode) vs the XLA lane solver:
     same controls, convergence flags and iteration counts."""
     from mpc_ros_tpu.engine import make_random_scenarios
-    from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
+    from mpc_ros_tpu.kernels.backward_pallas import pack_params
     from mpc_ros_tpu.kernels.solve_pallas import solve_pallas
 
     dtype = jnp.float32
@@ -148,15 +42,15 @@ def test_megakernel_interpret_matches_lane_solver():
 
 
 def test_megakernel_wide_tile_interpret_matches_lane_solver():
-    """sub=8 tiling ((8, 128)-vreg per value, 1024 scenarios per program)
-    must agree with the XLA lane solver exactly like sub=1 does."""
+    """A batch spread over several programs (16 blocks of 64 lanes) must
+    agree with the XLA lane solver exactly like a single block does."""
     from mpc_ros_tpu.engine import make_random_scenarios
-    from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
-    from mpc_ros_tpu.kernels.solve_pallas import _pick_sub, solve_pallas
+    from mpc_ros_tpu.kernels.backward_pallas import pack_params
+    from mpc_ros_tpu.kernels.solve_pallas import lane_block, solve_pallas
 
     dtype = jnp.float32
     B = 1024
-    assert _pick_sub(B, 11, 8) == 8
+    assert lane_block(B) == 64 and lane_block(B, 1024) == 1024
     z0s, coeffs = make_random_scenarios(jax.random.PRNGKey(2), B, dtype)
     p = MPCParams().astype(dtype)
     cfg = SolverConfig(n_steps=12, max_sqp_iters=6, tol_grad=1e-3,
@@ -183,7 +77,7 @@ def test_megakernel_per_scenario_params_interpret():
     parameter tile: two different w_cte values in one batch produce the
     same controls as two separate uniform-param solves."""
     from mpc_ros_tpu.engine import make_random_scenarios
-    from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
+    from mpc_ros_tpu.kernels.backward_pallas import pack_params
     from mpc_ros_tpu.kernels.solve_pallas import solve_pallas
 
     dtype = jnp.float32
@@ -214,7 +108,7 @@ def test_megakernel_done_frac_early_exit():
     loose fraction the tile stops earlier (never later) than a full run
     and still returns finite, usable iterates."""
     from mpc_ros_tpu.engine import make_random_scenarios
-    from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
+    from mpc_ros_tpu.kernels.backward_pallas import pack_params
     from mpc_ros_tpu.kernels.solve_pallas import solve_pallas
 
     dtype = jnp.float32
@@ -245,7 +139,7 @@ def test_megakernel_sorted_schedule_interpret():
     matching controls on converged lanes, per-lane iteration totals within
     the budget, and lane order restored after the sort/unsort."""
     from mpc_ros_tpu.engine import make_random_scenarios
-    from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
+    from mpc_ros_tpu.kernels.backward_pallas import pack_params
     from mpc_ros_tpu.kernels.solve_pallas import solve_pallas_scheduled
 
     dtype = jnp.float32
@@ -291,7 +185,7 @@ def test_megakernel_auto_schedule_small_batch_is_single_pass():
     """schedule='auto' below the batch threshold must be bit-identical to
     'single' (the scheduled driver falls through to one kernel call)."""
     from mpc_ros_tpu.engine import make_random_scenarios
-    from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
+    from mpc_ros_tpu.kernels.backward_pallas import pack_params
     from mpc_ros_tpu.kernels.solve_pallas import solve_pallas_scheduled
 
     dtype = jnp.float32
@@ -319,7 +213,7 @@ def test_megakernel_fast_trig_matches_exact():
     + Taylor rotation composition) vs trig='exact': controls within f32
     solve noise, same convergence fraction."""
     from mpc_ros_tpu.engine import make_random_scenarios
-    from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
+    from mpc_ros_tpu.kernels.backward_pallas import pack_params
     from mpc_ros_tpu.kernels.solve_pallas import solve_pallas
 
     dtype = jnp.float32
@@ -352,7 +246,7 @@ def test_fast_trig_rotation_accuracy_at_domain_edge():
     """The Taylor rotation step must track exact sin/cos to ~1e-6 over a
     full rollout at the domain edge |omega*dt| = 1 rad/step."""
     from mpc_ros_tpu.engine import make_random_scenarios
-    from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
+    from mpc_ros_tpu.kernels.backward_pallas import pack_params
     from mpc_ros_tpu.kernels.solve_pallas import solve_pallas
 
     dtype = jnp.float32
@@ -386,7 +280,7 @@ def test_megakernel_bicycle_matches_lane_solver():
     replaces max_angvel; controls, convergence and iteration counts must
     still match the lane path exactly like the diff-drive kernel does."""
     from mpc_ros_tpu.engine import make_random_scenarios
-    from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
+    from mpc_ros_tpu.kernels.backward_pallas import pack_params
     from mpc_ros_tpu.kernels.solve_pallas import solve_pallas
     from mpc_ros_tpu.models.base import get_model
 
@@ -419,7 +313,7 @@ def test_megakernel_bicycle_per_lane_wheelbase():
     two lf values must reproduce the two uniform-lf solves — the megakernel
     sweep axis the bicycle family was added for."""
     from mpc_ros_tpu.engine import make_random_scenarios
-    from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
+    from mpc_ros_tpu.kernels.backward_pallas import pack_params
     from mpc_ros_tpu.kernels.solve_pallas import solve_pallas
     from mpc_ros_tpu.models.base import get_model
 
@@ -453,7 +347,7 @@ def test_megakernel_bicycle_fast_trig():
     Taylor rotation carry must still agree with exact trig on converged
     lanes."""
     from mpc_ros_tpu.engine import make_random_scenarios
-    from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
+    from mpc_ros_tpu.kernels.backward_pallas import pack_params
     from mpc_ros_tpu.kernels.solve_pallas import solve_pallas
     from mpc_ros_tpu.models.base import get_model
 
@@ -488,7 +382,7 @@ def test_megakernel_non_cubic_references():
     once hard-coded 4 coefficient rows, silently truncating quartics):
     megakernel == XLA lane solver for P=3 (quadratic) and P=5 (quartic)."""
     from mpc_ros_tpu.engine import make_random_scenarios
-    from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
+    from mpc_ros_tpu.kernels.backward_pallas import pack_params
     from mpc_ros_tpu.kernels.solve_pallas import solve_pallas
 
     dtype = jnp.float32
@@ -588,7 +482,7 @@ def test_bicycle_fast_trig_extended_domain():
     on the HALF angle + double-angle composition, staying accurate to
     ~1e-5 through |d| = 2 rad/step (v=10, lf=0.25, delta=0.5, dt=0.1)."""
     from mpc_ros_tpu.engine import make_random_scenarios
-    from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
+    from mpc_ros_tpu.kernels.backward_pallas import pack_params
     from mpc_ros_tpu.kernels.solve_pallas import solve_pallas
     from mpc_ros_tpu.models.base import get_model
 
@@ -620,7 +514,7 @@ def test_megakernel_compact_schedule_interpret():
     converged under both, conv fraction preserved (the straggler pass gets
     a fresh budget, so it can only help), lane order restored."""
     from mpc_ros_tpu.engine import make_random_scenarios
-    from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
+    from mpc_ros_tpu.kernels.backward_pallas import pack_params
     from mpc_ros_tpu.kernels.solve_pallas import solve_pallas_scheduled
 
     dtype = jnp.float32
@@ -660,9 +554,9 @@ def test_megakernel_refs_constant_profile_matches_scalar_setpoints():
     """A per-stage setpoint profile that just broadcasts the scalar
     (ref_cte, ref_etheta, ref_vel) params must reproduce the no-refs
     megakernel solve EXACTLY — the kernel reads the same values from the
-    VMEM profile instead of the params pack."""
+    profile buffer instead of the params pack."""
     from mpc_ros_tpu.engine import make_random_scenarios
-    from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
+    from mpc_ros_tpu.kernels.backward_pallas import pack_params
     from mpc_ros_tpu.kernels.solve_pallas import solve_pallas
 
     dtype = jnp.float32
@@ -693,7 +587,7 @@ def test_megakernel_refs_matches_vmap_ilqr_refs():
     per-stage speed/cte profile."""
     from mpc_ros_tpu.engine import make_random_scenarios
     from mpc_ros_tpu.engine.batch import batch_solve
-    from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
+    from mpc_ros_tpu.kernels.backward_pallas import pack_params
     from mpc_ros_tpu.kernels.solve_pallas import solve_pallas
 
     dtype = jnp.float32
@@ -732,7 +626,7 @@ def test_batch_solve_lane_refs_fallback_matches_vmap():
     """On non-kernel configurations batch_solve_lane(refs=...) delegates
     to engine.batch_solve — identical results. Since round 4 parametric
     blobs ride the fallback too (obstacle-aware trajectory tracking
-    off-TPU, leaves (B, K) mapped per scenario); grid omaps still refuse
+    off-kernel, leaves (B, K) mapped per scenario); grid omaps still refuse
     instead of silently dropping terms."""
     from mpc_ros_tpu.engine import make_random_scenarios
     from mpc_ros_tpu.engine.batch import batch_solve
@@ -766,7 +660,7 @@ def test_batch_solve_lane_refs_fallback_matches_vmap():
 
     omaps = jax.vmap(lambda _: gaussian_blob_map((0.5, 0.1)))(
         jnp.arange(B, dtype=dtype))
-    with pytest.raises(ValueError, match="megakernel"):
+    with pytest.raises(ValueError, match="grid omaps"):
         bl.batch_solve_lane(z0s, coeffs, p, cfg, refs=refs, omaps=omaps)
 
 
@@ -779,7 +673,7 @@ def test_schedule_auto_resolves_to_compact_at_long_horizon(monkeypatch):
     slower)."""
     from mpc_ros_tpu.engine import make_random_scenarios
     from mpc_ros_tpu.kernels import solve_pallas as sp
-    from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
+    from mpc_ros_tpu.kernels.backward_pallas import pack_params
 
     dtype = jnp.float32
     B = 128
@@ -815,7 +709,7 @@ def test_compact_pair_two_policy_rescue_interpret():
     pass at the same auto config: conv never worse, finite outputs,
     same solution on mutually-converged same-basin lanes."""
     from mpc_ros_tpu.engine import make_random_scenarios
-    from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params
+    from mpc_ros_tpu.kernels.backward_pallas import pack_params
     from mpc_ros_tpu.kernels.solve_pallas import solve_pallas_scheduled
 
     dtype = jnp.float32

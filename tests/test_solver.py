@@ -3,7 +3,7 @@
 The oracle-match tests are the framework's substitute for the reference's
 `CppAD_Ipopt` golden check (/root/reference/assets/document/example/
 CppAD_Ipopt.cpp:88-165): known-solution NLPs verified at tight tolerance,
-plus the headline requirement — TPU solver control sequences within 1e-3 of
+plus the headline requirement — solver control sequences within 1e-3 of
 the (Ipopt-equivalent) full-NLP solution.
 """
 
@@ -103,7 +103,7 @@ def test_warm_start_reduces_iterations():
     cfg = SolverConfig(n_steps=20)
     res_cold = ilqr.solve(jnp.asarray(z0), jnp.asarray(coeffs), p, cfg)
     # shifted previous solution as warm start (the reference never did this
-    # — quirk Q9 — it is the TPU design's free win)
+    # — quirk Q9 — it is this design's free win)
     u_shift = jnp.concatenate([res_cold.us[1:], res_cold.us[-1:]])
     res_warm = ilqr.solve(jnp.asarray(z0), jnp.asarray(coeffs), p, cfg,
                           u_init=u_shift)
